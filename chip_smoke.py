@@ -19,12 +19,23 @@ Phases (each prints one line; any failure raises and exits nonzero):
    every kernel's launch count, then view 0 re-run through the plain
    versions (bit for bit) and a small scene held against the numpy
    brute-force oracle; then each stage of one view's device chain timed
-   alone (breakdown).
+   alone (breakdown);
+4. level S: the sub-tile raster configuration (``bin_block=8``,
+   ``subtile=(8, 16)``) -- its three kernels against their plain versions
+   on the nadir and oblique 4K views, bit for bit; the S path of
+   ``aggregate_projected_images`` over the same 8 views with every
+   kernel's launch count; view 0's pix2face with level S on against the
+   same configuration with it off; the unfused counts
+   (``ops/agg_tiled.py``) on view 0's pix2face; and the stage breakdown
+   of views 0/1/6 with level S on and off.
 
-The last two lines are a JSON object of per-kernel results and
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-nonzero before printing any result.  It imports nothing of JAX or of the
-JAX package.
+The last two lines are the card's name and power limit, then
+``{"ok": true, "device": {...}}``; the line before them is a JSON object
+of per-kernel results, each with its time, its plain version's time, the
+least time the card could take for the same work (``bound_ms``) and,
+where one PyTorch call computes the same function, that call's time.
+Without a CUDA device it exits nonzero before printing any result.  It
+imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -44,12 +55,15 @@ from geograypher_tpu_torch.cameras.core import CameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.meshes.mesh import TexturedMesh
-from geograypher_tpu_torch.ops import face_counts, raster_tiles
+from geograypher_tpu_torch.ops import face_counts, raster_tiles, subtile
+from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
+    bin_all,
     bin_triangles,
     binned_face_lists,
     fused_view_class_counts,
+    rasterize_setup,
     rasterize_triangles,
     setup_from_soa,
 )
@@ -65,6 +79,23 @@ N_CLASSES = 10
 H, W = 2160, 3840
 CAP_MARGIN = 1.25  # caps = ceil(census max x margin) + 8 slots
 ORACLE_MIN_AGREE = 0.99  # f32 kernel vs the float64 oracle: knife-edge pixels
+S_MIN_AGREE = 0.9999  # level S on vs off: only exact cross-group 1/z ties differ
+# the least time of a kernel's work on one H100 SXM (NVIDIA's data
+# sheet): FP32 outside the tensor cores, HBM rate
+FP32_FLOP_S = 67e12
+HBM_BYTES_S = 3.35e12
+# a candidate-pixel evaluation: 3 edge planes + the 1/z plane, each
+# (a*x + b*y) + c, two multiplies and two adds
+FLOP_PER_CAND_PIXEL = 16
+# the replaced TPU kernels (function, file:line of its definition)
+TPU_KERNELS = {
+    "B1": "geograypher_tpu/ops/pallas_raster.py:524",
+    "B2": "geograypher_tpu/ops/agg_tiled.py:1000",
+    "B3": "geograypher_tpu/ops/agg_tiled.py:895",
+    "B4": "geograypher_tpu/ops/agg_tiled.py:155",
+    "B5": "geograypher_tpu/ops/subtile.py:352",
+    "B6": "geograypher_tpu/ops/subtile.py:570",
+}
 
 
 class LabelSegmentor:
@@ -87,9 +118,9 @@ def _line(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def _cuda_ms(fn, runs=5):
-    """Median milliseconds of ``fn`` over ``runs`` timed calls (CUDA
-    events, one untimed warm-up call first)."""
+def _cuda_times(fn, runs=5):
+    """Milliseconds of ``fn`` in ``runs`` timed calls (CUDA events, one
+    untimed warm-up call first)."""
     fn()
     times = []
     for _ in range(runs):
@@ -100,7 +131,91 @@ def _cuda_ms(fn, runs=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def _cuda_ms(fn, runs=5):
+    """Median milliseconds of ``fn`` over ``runs`` timed calls."""
+    return statistics.median(_cuda_times(fn, runs))
+
+
+def _ab_ms(fn_a, fn_b, runs=5):
+    """Medians of two versions timed in turns a, b, b, a (``runs`` calls
+    each turn), and the spread (max - min of the turn medians) of each."""
+    ta1, tb1, tb2, ta2 = (statistics.median(_cuda_times(f, runs))
+                          for f in (fn_a, fn_b, fn_b, fn_a))
+    return ((ta1 + ta2) / 2, abs(ta1 - ta2)), ((tb1 + tb2) / 2, abs(tb1 - tb2))
+
+
+def _bound(n_bytes, n_flop):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the FP32 operations over the FP32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_flop / FP32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _box_pixels(setup, faces=None):
+    """The candidate-pixels a view's data needs: every valid face (of the
+    mask ``faces``, when given) evaluated over the pixels of its own box,
+    which ``setup.bbox`` holds clipped to the image."""
+    py0, px0, py1, px1 = (setup.bbox[k].long() for k in range(4))
+    keep = setup.valid if faces is None else setup.valid & faces
+    return int(torch.where(keep, (py1 - py0 + 1) * (px1 - px0 + 1), 0).sum())
+
+
+def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None):
+    """The tile raster's bound on this view: each face of the tile lists
+    (those level S did not take, ``s_mask8``) over its own box; each
+    input read once, the pix2face written once.  Also the candidate-pixels
+    the kernel evaluates: every L0 tile's in-image pixels against its own,
+    its L1 and L2 parents' and the global list's counts."""
+    th, tw = cfg.tile_h, cfg.tile_w
+    nty0, ntx0 = cfg.grids(H, W)[0]
+    p1, p2 = raster_tiles._parents(cfg, H, W, planes.device)
+    n = (counts[0].long() + counts[1].long()[p1] + counts[2].long()[p2]
+         + counts[3].long())
+    t = torch.arange(nty0 * ntx0, device=planes.device)
+    pix = ((H - t // ntx0 * th).clamp(max=th) * (W - t % ntx0 * tw).clamp(max=tw))
+    cand_pixels = int((n * pix).sum())
+    listed = (None if s_mask8 is None
+              else ~s_mask8.repeat_interleave(cfg.bin_block))
+    need_pixels = _box_pixels(setup, listed)
+    n_bytes = (planes.numel() * 4 + sum(c.numel() * 4 for c in cand)
+               + sum(c.numel() * 4 for c in counts) + H * W * 4
+               + (0 if s_init is None else 2 * H * W * 4))
+    return (_bound(n_bytes, FLOP_PER_CAND_PIXEL * need_pixels), need_pixels,
+            cand_pixels)
+
+
+def _s_raster_bound(setup, sb, cfg):
+    """The sub-tile raster's bound: each face level S took over its own
+    box; the CSR lists and the S units' plane rows read once, both (H, W)
+    planes written once.  Also the candidate-pixels the kernel evaluates:
+    every S face slot against its sub-tile's pixels."""
+    sh, sw = cfg.subtile
+    _, nsx = subtile.subtile_grid(cfg, H, W)
+    sub = sb.sub_ids.long()
+    pix = ((H - sub // nsx * sh).clamp(max=sh) * (W - sub % nsx * sw).clamp(max=sw))
+    cand_pixels = int((sb.sub_count.long() * cfg.s_block * pix).sum())
+    need_pixels = _box_pixels(setup, sb.s_mask8.repeat_interleave(cfg.bin_block))
+    n_units = int(torch.unique(sb.units).numel())
+    n_bytes = (4 * (sb.units.numel() + 3 * sb.sub_ids.numel())
+               + n_units * cfg.s_block * 48 + 2 * H * W * 4)
+    return (_bound(n_bytes, FLOP_PER_CAND_PIXEL * need_pixels), need_pixels,
+            cand_pixels)
+
+
+def _counts_bound(n_faces):
+    """The counts kernel's bound: pix2face and class image read, the
+    (F, C) int32 counts written."""
+    return _bound(2 * H * W * 4 + n_faces * N_CLASSES * 4, 0)
+
+
+def _counts_library_ms(p2f, cls, n_faces):
+    """One ``torch.bincount`` over the flat (face, class) key, background
+    shifted into the first C bins; the port never calls it."""
+    key = ((p2f.long() + 1) * N_CLASSES + cls.long()).reshape(-1)
+    return _cuda_ms(lambda: torch.bincount(key, minlength=(n_faces + 1) * N_CLASSES))
 
 
 def _knife_edge(a, b):
@@ -135,10 +250,14 @@ def _suite_cameras(focals=(2000.0, 2600.0), n_views=8):
 
 
 def _census_caps(setups, cfg):
-    """Per-level exact census max over ``setups`` and the caps it sizes."""
-    census = torch.stack(
-        [bin_triangles(s, cfg, H, W, return_census=True) for s in setups]
-    ).amax(0).tolist()
+    """Per-level exact census max over ``setups`` and the caps it sizes
+    (with level S on, of the L0..L3 lists after its diversion)."""
+    census = torch.stack([
+        bin_triangles(s, cfg, H, W, return_census=True,
+                      exclude_blocks=None if cfg.subtile is None
+                      else subtile.subtile_mask8(s, cfg))
+        for s in setups
+    ]).amax(0).tolist()
     return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
 
 
@@ -166,6 +285,9 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
             f"counts kernel vs plain on {name}: max |diff| "
             f"{int((cnt - cnt_plain).abs().max())}"
         )
+    (raster_bound_ms, raster_bound_by), need_pixels, cand_pixels = _raster_bound(
+        setup, planes, cand, counts, cfg)
+    counts_bound_ms, counts_bound_by = _counts_bound(n_faces)
     row = dict(
         view=name, bin_block=cfg.bin_block,
         census=bin_triangles(setup, cfg, H, W, return_census=True).tolist(),
@@ -182,8 +304,79 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
             p2f, cls, n_faces, N_CLASSES)),
         counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
             p2f, cls, n_faces, N_CLASSES)),
+        counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
+        raster_cand_pixels=cand_pixels, raster_need_pixels=need_pixels,
+        raster_bound_ms=raster_bound_ms, raster_bound_by=raster_bound_by,
+        counts_bound_ms=counts_bound_ms, counts_bound_by=counts_bound_by,
     )
     _line(2, **row)
+    return row
+
+
+def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
+    """Level S on one view: the sub-tile raster, the S-seeded tile raster
+    and the counts kernel against their plain versions, bit for bit, and
+    the median times of all six."""
+    binned, sb = bin_all(setup, cfg, H, W)
+    if int(binned.overflow):
+        raise RuntimeError(f"{name}: S caps {cfg.caps} overflow ({int(binned.overflow)})")
+    cand, counts = binned_face_lists(binned, cfg)
+    planes = setup.planes.contiguous()
+    s_w, s_id = subtile.s_raster(sb, planes, cfg, H, W)
+    s_w_p, s_id_p = subtile.s_raster_plain(sb, planes, cfg, H, W)
+    torch.cuda.synchronize()
+    if not (torch.equal(s_w, s_w_p) and torch.equal(s_id, s_id_p)):
+        raise RuntimeError(
+            f"s_raster vs plain on {name}: {int((s_id != s_id_p).sum())} ids and "
+            f"{int((s_w != s_w_p).sum())} depths differ")
+    s_init = (s_w, s_id)
+    p2f = raster_tiles.raster_tiles(planes, cand, counts, cfg, H, W, s_init=s_init)
+    p2f_plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, H, W,
+                                                s_init=s_init)
+    torch.cuda.synchronize()
+    if not torch.equal(p2f, p2f_plain):
+        agree, bg = _knife_edge(p2f, p2f_plain)
+        raise RuntimeError(
+            f"S-seeded raster vs plain on {name}: {int((p2f != p2f_plain).sum())} "
+            f"pixels differ (agreement {agree:.6f}, {bg} face-vs-background)")
+    cnt = face_counts.face_class_counts(p2f, cls, n_faces, N_CLASSES)
+    cnt_plain = face_counts.face_class_counts_plain(p2f, cls, n_faces, N_CLASSES)
+    if not torch.equal(cnt, cnt_plain):
+        raise RuntimeError(f"counts kernel vs plain on {name} (level S): max |diff| "
+                           f"{int((cnt - cnt_plain).abs().max())}")
+    (s_bound_ms, s_bound_by), s_need_pixels, s_cand_pixels = _s_raster_bound(
+        setup, sb, cfg)
+    (r_bound_ms, r_bound_by), r_need_pixels, r_cand_pixels = _raster_bound(
+        setup, planes, cand, counts, cfg, s_init, sb.s_mask8)
+    row = dict(
+        view=name, bin_block=cfg.bin_block, subtile=list(cfg.subtile),
+        caps=list(cfg.caps), list_entries=[int(c.sum()) for c in counts],
+        s_pairs=int(sb.units.numel()), s_occupied=int(sb.sub_ids.numel()),
+        s_diverted_blocks=int(sb.s_mask8.sum()),
+        s_covered=round((s_id >= 0).float().mean().item(), 6),
+        coverage=round((p2f >= 0).float().mean().item(), 6),
+        s_raster_max_abs_err=max(int((s_id - s_id_p).abs().max()),
+                                 int((s_w != s_w_p).sum())),
+        raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
+        counts_max_abs_err=int((cnt - cnt_plain).abs().max()),
+        s_raster_ms=_cuda_ms(lambda: subtile.s_raster(sb, planes, cfg, H, W)),
+        s_raster_plain_ms=_cuda_ms(
+            lambda: subtile.s_raster_plain(sb, planes, cfg, H, W)),
+        raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
+            planes, cand, counts, cfg, H, W, s_init=s_init)),
+        raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
+            planes, cand, counts, cfg, H, W, s_init=s_init)),
+        counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
+            p2f, cls, n_faces, N_CLASSES)),
+        counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
+            p2f, cls, n_faces, N_CLASSES)),
+        counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
+        s_cand_pixels=s_cand_pixels, raster_cand_pixels=r_cand_pixels,
+        s_need_pixels=s_need_pixels, raster_need_pixels=r_need_pixels,
+        s_raster_bound_ms=s_bound_ms, s_raster_bound_by=s_bound_by,
+        raster_bound_ms=r_bound_ms, raster_bound_by=r_bound_by,
+    )
+    _line("2s", **row)
     return row
 
 
@@ -301,8 +494,7 @@ def main():
     # -- phase 3: the main path ---------------------------------------------------
     labels = rng.integers(0, N_CLASSES, (len(cams), H, W), dtype=np.int8)
     seg_cams = SegmentorCameraSet(cams, LabelSegmentor(labels, N_CLASSES))
-    raster_tiles.launches = 0
-    face_counts.launches = 0
+    raster_tiles.launches = face_counts.launches = subtile.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -403,28 +595,193 @@ def main():
                   soa, b.world_to_cam[0], b.f[0], b.distortion[0], b.cx[0],
                   b.cy[0], cls_i, W, H, cfg, soa.shape[1], N_CLASSES, use_dist)),
               list_entries=[int(c.sum()) for c in counts_i])
+    # -- phase 4: level S ------------------------------------------------------
+    rows_s, launches_s = _level_s(mesh, cams, seg_cams, soa, cls, avg, info,
+                                  nadir_c2w, smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
 
-    sources = {
-        "raster_tiles": ("geograypher_tpu_torch/csrc/raster_tiles.cu",
-                         "geograypher_tpu/ops/pallas_raster.py:524"),
-        "face_class_counts": ("geograypher_tpu_torch/csrc/face_class_counts.cu",
-                              "geograypher_tpu/ops/agg_tiled.py:895"),
-    }
-    key = {"raster_tiles": "raster", "face_class_counts": "counts"}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": max(r[f"{key[name]}_max_abs_err"] for r in rows),
-         # the main path's configuration: the first two phase-2 views
-         "ms": statistics.mean(r[f"{key[name]}_ms"] for r in rows[:2]),
-         "plain_ms": statistics.mean(r[f"{key[name]}_plain_ms"] for r in rows[:2])}
-        for name, (src, rep) in sources.items()
-    ]}), flush=True)
+    # one line per kernel: launches are the main paths' (phase 3 and the
+    # level-S path); times and bounds are the kernel-vs-plain views at the
+    # main path's configuration (phase 2's first two views; level S: its
+    # two views at the S configuration)
+    def mean(rs, key):
+        return statistics.mean(r[key] for r in rs)
+
+    main_rows = rows[:2]
+    all_rows = rows + rows_s
+    kernels = [
+        dict(name="raster_tiles", route="cuda",
+             source="geograypher_tpu_torch/csrc/raster_tiles.cu",
+             replaces=TPU_KERNELS["B1"],
+             launches=launches["raster_tiles"] + launches_s["raster_tiles"],
+             max_abs_err=max(r["raster_max_abs_err"] for r in all_rows),
+             ms=mean(main_rows, "raster_ms"),
+             plain_ms=mean(main_rows, "raster_plain_ms"),
+             bound_ms=mean(main_rows, "raster_bound_ms"),
+             bound_by=main_rows[0]["raster_bound_by"], library_ms=None),
+        dict(name="face_class_counts", route="cuda",
+             source="geograypher_tpu_torch/csrc/face_class_counts.cu",
+             replaces=", ".join(TPU_KERNELS[k] for k in ("B2", "B3", "B4", "B6")),
+             launches=(launches["face_class_counts"]
+                       + launches_s["face_class_counts"]),
+             max_abs_err=max(r["counts_max_abs_err"] for r in all_rows),
+             ms=mean(main_rows, "counts_ms"),
+             plain_ms=mean(main_rows, "counts_plain_ms"),
+             bound_ms=mean(main_rows, "counts_bound_ms"),
+             bound_by=main_rows[0]["counts_bound_by"],
+             library_ms=mean(main_rows, "counts_library_ms")),
+        dict(name="s_raster", route="cuda",
+             source="geograypher_tpu_torch/csrc/s_raster.cu",
+             replaces=TPU_KERNELS["B5"], launches=launches_s["s_raster"],
+             max_abs_err=max(r["s_raster_max_abs_err"] for r in rows_s),
+             ms=mean(rows_s, "s_raster_ms"),
+             plain_ms=mean(rows_s, "s_raster_plain_ms"),
+             bound_ms=mean(rows_s, "s_raster_bound_ms"),
+             bound_by=rows_s[0]["s_raster_bound_by"], library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
+    """Phase 4: the level-S configuration on the same mesh and views.
+    Returns (kernel-vs-plain rows, the S path's launch counts)."""
+    dev = soa.device
+    soa8 = mesh._tri_soa_device(cams, 8)  # padded to a multiple of 8
+    n_pad = soa8.shape[1]
+    base = RasterConfig(bin_block=8, l0_window=(5, 2),
+                        global_from=mesh.raster_config.global_from)
+    cfg_s = dataclasses.replace(base, subtile=(8, 16), s_window=(3, 2), s_block=4)
+    setups = []
+    for i in range(len(cams)):
+        b = cams.get_camera_batch([i], device=dev)
+        use_dist = mesh._resolve_distortion(cams, i, None)
+        setups.append(setup_from_soa(
+            soa8, b.world_to_cam[0], b.f[0], W, H, base.znear,
+            distortion=(b.distortion[0], b.cx[0], b.cy[0]) if use_dist else None,
+        ))
+    probes = [
+        ("nadir_f2000", _probe_setup(soa8, nadir_c2w, 2000.0, base)),
+        ("oblique_f2600_p30", _probe_setup(
+            soa8, oblique_camera(4.0, 2600.0, W, pitch_deg=30.0, azimuth_deg=45.0),
+            2600.0, base)),
+    ]
+    census_s, caps_s = _census_caps(setups + [s for _, s in probes], cfg_s)
+    census_off, caps_off = _census_caps(setups + [s for _, s in probes], base)
+    cfg_s = dataclasses.replace(cfg_s, caps=caps_s)
+    cfg_off = dataclasses.replace(base, caps=caps_off)
+    overflow = sum(int(bin_all(s, cfg_s, H, W)[0].overflow) for s in setups)
+    if overflow:
+        raise RuntimeError(f"level-S census caps {caps_s} overflow ({overflow})")
+    _line("setup_s", padded_faces=n_pad, census_s=census_s, caps_s=list(caps_s),
+          census_off=census_off, caps_off=list(caps_off), overflow=overflow)
+
+    # the three kernels against their plain versions, bit for bit
+    rows = [_s_kernels_vs_plain(name, s, cfg_s, n_pad, cls) for name, s in probes]
+
+    # the S path through the entry point
+    raster_tiles.launches = face_counts.launches = subtile.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg_s, info_s = mesh.aggregate_projected_images(seg_cams, config=cfg_s)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"raster_tiles": raster_tiles.launches,
+                "face_class_counts": face_counts.launches,
+                "s_raster": subtile.launches}
+    for name, n in launches.items():
+        if n < len(cams):
+            raise RuntimeError(f"level S: {name} launched {n} times for "
+                               f"{len(cams)} views")
+    seen = info_s["projection_counts"] > 0
+    if avg_s.shape != avg.shape or not np.isfinite(avg_s[seen]).all():
+        raise RuntimeError(f"level S: bad aggregate, shape {avg_s.shape}")
+    if not np.isnan(avg_s[~seen]).all():
+        raise RuntimeError("level S: unseen faces must be NaN")
+    frac_err = float(np.abs(avg_s[seen].sum(axis=1) - 1.0).max())
+    if frac_err > 1e-5:
+        raise RuntimeError(f"level S: class fractions sum off 1 by {frac_err}")
+    # against the main path (level S off, bin_block=1): the pix2face maps
+    # differ only on exact 1/z ties, so nearly every face's counts agree
+    same_counts = float((info_s["summed_projections"]
+                         == info["summed_projections"]).all(axis=1).mean())
+    if same_counts < 0.99:
+        raise RuntimeError(f"level S vs main path: only {same_counts} of faces "
+                           "have equal counts")
+    _line(4, views=len(cams), seconds=round(dt, 4),
+          views_per_s=round(len(cams) / dt, 4), launches=launches,
+          seen_frac=round(float(seen.mean()), 6), frac_sum_err=frac_err,
+          overflow=overflow, faces_equal_to_main_path=same_counts, card=smi)
+
+    # view 0: level S on against off, and the unfused counts (B4's
+    # counterpart) on its pix2face
+    p2f_on, binned_on = rasterize_setup(setups[0], cfg_s, H, W)
+    p2f_off, binned_off = rasterize_setup(setups[0], cfg_off, H, W)
+    agree, bg = _knife_edge(p2f_on, p2f_off)
+    if agree < S_MIN_AGREE or bg or int(binned_on.overflow) or int(binned_off.overflow):
+        raise RuntimeError(f"view 0 level S on vs off: agreement {agree}, {bg} "
+                           "face-vs-background")
+    cls0 = torch.as_tensor(mesh._as_class_image(seg_cams.get_image_by_index(0)),
+                           device=dev)
+    tiled, tiled_over = project_image_class_counts_tiled(
+        p2f_on, cls0, binned_on, cfg_s, H, W, n_pad, N_CLASSES)
+    tiled_plain = face_counts.face_class_counts_plain(p2f_on, cls0, n_pad, N_CLASSES)
+    if not torch.equal(tiled, tiled_plain.to(torch.float32)) or int(tiled_over):
+        raise RuntimeError("unfused counts vs plain on view 0 (level S) differ")
+    _line("check_s", view0_s_on_off_agree=agree, view0_s_on_off_bg=bg,
+          view0_s_on_off_pixels_differ=int((p2f_on != p2f_off).sum()),
+          view0_tiled_counts_equal=True,
+          tiled_ms=_cuda_ms(lambda: project_image_class_counts_tiled(
+              p2f_on, cls0, binned_on, cfg_s, H, W, n_pad, N_CLASSES)),
+          tiled_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
+              p2f_on, cls0, n_pad, N_CLASSES)),
+          tiled_library_ms=_counts_library_ms(p2f_on, cls0, n_pad),
+          tiled_bound_ms=_counts_bound(n_pad)[0], card=smi)
+
+    # where one view's device time goes with level S on, and at
+    # bin_block=8 with it off
+    cls_host = cls0.cpu()
+    for i in (0, 1, 6):
+        b = cams.get_camera_batch([i], device=dev)
+        use_dist = mesh._resolve_distortion(cams, i, None)
+        s_i = setups[i]
+        binned_i, sb_i = bin_all(s_i, cfg_s, H, W)
+        cand_i, counts_i = binned_face_lists(binned_i, cfg_s)
+        planes_i = s_i.planes.contiguous()
+        init_i = subtile.s_raster(sb_i, planes_i, cfg_s, H, W)
+        cand_o, counts_o = binned_face_lists(bin_triangles(s_i, cfg_off, H, W), cfg_off)
+        cls_i = cls_host.to(dev)
+
+        def chain(cfg):
+            return fused_view_class_counts(
+                soa8, b.world_to_cam[0], b.f[0], b.distortion[0], b.cx[0],
+                b.cy[0], cls_i, W, H, cfg, n_pad, N_CLASSES, use_dist)
+
+        (on_ms, on_spread), (off_ms, off_spread) = _ab_ms(
+            lambda: chain(cfg_s), lambda: chain(cfg_off))
+        _line("breakdown_s", view=i, distorted=use_dist,
+              s_binning_ms=_cuda_ms(lambda: subtile.bin_subtiles(s_i, cfg_s, H, W)),
+              tile_binning_ms=_cuda_ms(lambda: binned_face_lists(bin_triangles(
+                  s_i, cfg_s, H, W, exclude_blocks=sb_i.s_mask8), cfg_s)),
+              s_raster_ms=_cuda_ms(lambda: subtile.s_raster(
+                  sb_i, planes_i, cfg_s, H, W)),
+              raster_carry_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
+                  planes_i, cand_i, counts_i, cfg_s, H, W, s_init=init_i)),
+              fused_chain_ms=on_ms, fused_chain_spread_ms=on_spread,
+              off_binning_ms=_cuda_ms(lambda: binned_face_lists(
+                  bin_triangles(s_i, cfg_off, H, W), cfg_off)),
+              off_raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
+                  planes_i, cand_o, counts_o, cfg_off, H, W)),
+              off_fused_chain_ms=off_ms, off_fused_chain_spread_ms=off_spread,
+              list_entries=[int(c.sum()) for c in counts_i],
+              off_list_entries=[int(c.sum()) for c in counts_o],
+              # (sub-tile, unit) pairs and the most units of one sub-tile
+              s_census=subtile.subtile_counts_census(s_i, cfg_s, H, W).tolist(),
+              s_occupied=int(sb_i.sub_ids.numel()), card=smi)
+    return rows, launches
 
 
 if __name__ == "__main__":

@@ -258,7 +258,7 @@ class CameraSet:
     def get_image_by_index(self, index: int, image_scale: float = 1.0) -> np.ndarray:
         """Load camera ``index``'s image (.npy or an image file), keeping
         raw images in a small LRU cache; resizing runs per call."""
-        from geograypher_tpu.utils.io import read_image_or_numpy
+        from geograypher_tpu_torch.utils.io import read_image_or_numpy
 
         fname = self.get_image_filename(index)
         if fname is None:

@@ -3,7 +3,8 @@
 Port of ``geograypher_tpu/cameras/metashape.py``: parses the camera XML
 (sensors, per-camera and grouped transforms, chunk -> ECEF transform),
 rebases image paths, and derives per-camera lon/lat from the optimized
-poses.  The XML parsing is the JAX package's numpy code, reused.
+poses.  The XML parsing is the port's copy of the JAX package's numpy
+code (``utils/parsing.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
-from geograypher_tpu.utils import crs as crs_utils
-from geograypher_tpu.utils.parsing import parse_sensors, parse_transform_metashape
+from geograypher_tpu_torch.utils import crs as crs_utils
+from geograypher_tpu_torch.utils.parsing import parse_sensors, parse_transform_metashape
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.cameras.core import CameraSet
 

@@ -3,9 +3,9 @@
 Port of ``geograypher_tpu/cameras/segmentor_set.py`` on the port's
 :class:`CameraSet`.  ``get_image_by_index`` returns the segmentor's
 prediction (one-hot class maps, detection rasters, ...) instead of the
-raw image.  A segmentor is any object with the interface of the JAX
-package's framework-free ``geograypher_tpu.predictors.segmentors.Segmentor``
-(``segment_image`` and a ``needs_image`` flag); those classes work as is.
+raw image.  A segmentor is any object with the interface of
+:class:`geograypher_tpu_torch.predictors.segmentors.Segmentor`
+(``segment_image`` and a ``needs_image`` flag).
 """
 
 from __future__ import annotations

@@ -27,6 +27,11 @@
 // across groups only a strictly larger 1/z replaces the earlier group's
 // winner.
 //
+// Level-S carry (pallas_raster.py s_init): given the sub-tile raster's
+// image-layout (best_w, best_id) planes (s_raster.cu), each pixel starts
+// from its S winner instead of (-inf, -1), so an L0+ candidate beats an S
+// winner only strictly -- the TPU kernel's rule.
+//
 // What bounds it on the H100: FP32 instruction throughput.  Each
 // candidate costs every pixel of the tile 3 edge planes + 1 depth plane
 // (4 x 4 FP32 ops) while its plane row is a broadcast shared-memory
@@ -42,13 +47,9 @@
 #include <climits>
 #include <cstdint>
 
-namespace {
+#include "eval_plane.cuh"
 
-// (a*x + b*y) + c, each operation rounded separately (no FMA contraction)
-__device__ __forceinline__ float eval_plane(float a, float b, float c, float x,
-                                            float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
+namespace {
 
 constexpr int kThreads = 256;
 constexpr int kPixPerThread = 4;  // tiles of at most 1024 pixels
@@ -58,6 +59,8 @@ struct RasterArgs {
   const float* planes;  // (F, 12): 3 edge planes (A, B, C) + 1/z plane
   const int* cand[4];   // per-level face-id lists, -1 = empty slot
   const int* cnt[4];    // per-level true counts (face slots)
+  const float* s_w;     // (H, W) level-S carry 1/z, or null
+  const int* s_id;      // (H, W) level-S carry face id, or null
   int* out;             // (H, W) pix2face, -1 = background
   int H, W, th, tw;
   int nty0, ntx0, nty1, ntx1, nty2, ntx2, s1, s2;
@@ -134,15 +137,23 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(RasterArgs a) {
   const int tile = blockIdx.x;
   const int ty = tile / a.ntx0;
   const int tx = tile % a.ntx0;
+  const int npix = a.th * a.tw;
   float px[kPixPerThread], py[kPixPerThread], bw[kPixPerThread];
   int bid[kPixPerThread];
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     const int p = threadIdx.x + k * kThreads;
-    px[k] = static_cast<float>(tx * a.tw + p % a.tw) + 0.5f;
-    py[k] = static_cast<float>(ty * a.th + p / a.tw) + 0.5f;
+    const int y = ty * a.th + p / a.tw;
+    const int x = tx * a.tw + p % a.tw;
+    px[k] = static_cast<float>(x) + 0.5f;
+    py[k] = static_cast<float>(y) + 0.5f;
     bw[k] = -CUDART_INF_F;
     bid[k] = -1;
+    if (a.s_w != nullptr && p < npix && y < a.H && x < a.W) {
+      const int64_t o = static_cast<int64_t>(y) * a.W + x;
+      bw[k] = a.s_w[o];
+      bid[k] = a.s_id[o];
+    }
   }
 
   // level 0: the tile's own list
@@ -160,7 +171,6 @@ __global__ void __launch_bounds__(kThreads) raster_tiles_kernel(RasterArgs a) {
                 min(a.cnt[2][p2], a.cap[2]), a.cand[3],
                 min(a.cnt[3][0], a.cap[3]), sp, sid, px, py, bw, bid);
 
-  const int npix = a.th * a.tw;
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     const int p = threadIdx.x + k * kThreads;
@@ -177,7 +187,8 @@ extern "C" int gg_raster_tiles(const void* planes, const void* cand0,
                                const void* cand1, const void* cand2,
                                const void* cand3, const void* cnt0,
                                const void* cnt1, const void* cnt2,
-                               const void* cnt3, void* out, int H, int W,
+                               const void* cnt3, const void* s_w,
+                               const void* s_id, void* out, int H, int W,
                                int tile_h, int tile_w, int nty0, int ntx0,
                                int nty1, int ntx1, int nty2, int ntx2, int s1,
                                int s2, int c0, int c1, int c2, int c3,
@@ -194,6 +205,8 @@ extern "C" int gg_raster_tiles(const void* planes, const void* cand0,
   a.cnt[1] = static_cast<const int*>(cnt1);
   a.cnt[2] = static_cast<const int*>(cnt2);
   a.cnt[3] = static_cast<const int*>(cnt3);
+  a.s_w = static_cast<const float*>(s_w);
+  a.s_id = static_cast<const int*>(s_id);
   a.out = static_cast<int*>(out);
   a.H = H;
   a.W = W;

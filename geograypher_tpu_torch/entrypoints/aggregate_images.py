@@ -18,8 +18,8 @@ import typing
 import numpy as np
 import torch
 
-from geograypher_tpu.predictors.segmentors import LookUpSegmentor
-from geograypher_tpu.utils.files import ensure_containing_folder
+from geograypher_tpu_torch.predictors.segmentors import LookUpSegmentor
+from geograypher_tpu_torch.utils.files import ensure_containing_folder
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet

@@ -20,14 +20,11 @@ from geograypher_tpu_torch.ops.rasterize import RasterConfig
 def raster_config_from_jax(cfg) -> RasterConfig:
     """The port's RasterConfig with a JAX ``RasterConfig``'s fields.
 
-    The TPU-only tuning fields are dropped; a level-S ``subtile`` setting
-    is refused because level S is not ported yet.
+    The level-S fields (``subtile``, ``s_window``, ``s_block``) are
+    carried; the TPU-only tuning fields are dropped, among them the S
+    capacities (``s_cap_chunks``, ``s_pair_chunks``, ``s_kb``), since the
+    port builds each view's S lists at their exact demand.
     """
-    if getattr(cfg, "subtile", None) is not None:
-        raise NotImplementedError(
-            "the level-S sub-tile raster (RasterConfig.subtile) is not "
-            "ported yet (ROADMAP A10, kernels B5/B6)"
-        )
     return RasterConfig(
         tile_h=cfg.tile_h,
         tile_w=cfg.tile_w,
@@ -38,12 +35,16 @@ def raster_config_from_jax(cfg) -> RasterConfig:
         bin_block=cfg.bin_block,
         l0_window=cfg.l0_window,
         global_from=cfg.global_from,
+        subtile=None if cfg.subtile is None else tuple(cfg.subtile),
+        s_window=tuple(cfg.s_window),
+        s_block=cfg.s_block,
     )
 
 
-def mesh_from_jax(tmesh, device="cpu") -> TexturedMesh:
+def mesh_from_jax(tmesh, device="cuda") -> TexturedMesh:
     """A port TexturedMesh holding a JAX TexturedMesh's geometry, CRS,
-    raster config and face/vertex textures (as numpy)."""
+    raster config and face/vertex textures (as numpy).  Its per-view work
+    runs on the card unless ``device="cpu"`` is asked for."""
     out = TexturedMesh(
         (np.array(tmesh.verts), np.array(tmesh.faces)),
         IDs_to_labels=tmesh.IDs_to_labels,

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface,
+(one ``nvcc`` per source, all started together) and linked into one
+shared library with a plain C interface,
 ``build/torch_kernels/libgg_torch_kernels.so`` under the repository root,
 and loaded with ``ctypes``.  A SHA-256 of the sources and the compiler
 flags is written beside the library, so an unchanged tree does not
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libgg_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -40,10 +41,13 @@ _I64 = ctypes.c_int64
 # argtypes of every C entry point: an undeclared pointer would be cut to
 # 32 bits by ctypes
 SIGNATURES = {
-    # planes, cand0..cand3, cnt0..cnt3, out,
-    # H, W, tile_h, tile_w, nty0, ntx0, nty1, ntx1, nty2, ntx2, s1, s2,
-    # c0, c1, c2, c3, stream
-    "gg_raster_tiles": [_P] * 10 + [_I] * 16 + [_P],
+    # planes, cand0..cand3, cnt0..cnt3, s_w, s_id (null: no level-S
+    # carry), out, H, W, tile_h, tile_w, nty0, ntx0, nty1, ntx1, nty2,
+    # ntx2, s1, s2, c0, c1, c2, c3, stream
+    "gg_raster_tiles": [_P] * 12 + [_I] * 16 + [_P],
+    # planes, units, sub_ids, sub_start, sub_count, best_w, best_id,
+    # n_occ, H, W, sh, sw, nsx, s_block, stream
+    "gg_s_raster": [_P] * 7 + [_I] * 7 + [_P],
     # pix2face, class_image, counts, n_pix, n_faces, n_classes, stream
     "gg_face_class_counts": [_P, _P, _P, _I64, _I64, _I, _P],
 }
@@ -90,20 +94,36 @@ def build() -> Path:
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build under a private name, then rename: concurrent processes never
+    nvcc = _nvcc()
+    # build under private names, then rename: concurrent processes never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in CSRC_DIR.glob("*.cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = Path(tmp_dir) / (src.stem + ".o")
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        log, failed = [], []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        tmp_lib = Path(tmp_dir) / LIB_NAME
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _, o, _ in jobs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            log.append(f"== link\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append("link")
+        (BUILD_DIR / "nvcc.log").write_text("".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(log))
+        os.replace(tmp_lib, lib_path)
     stamp.write_text(digest)
     last_build_seconds = time.perf_counter() - t0
     return lib_path

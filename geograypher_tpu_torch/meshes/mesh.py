@@ -37,13 +37,20 @@ from geograypher_tpu_torch.ops.aggregate import (
 )
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
-    bin_triangles,
+    bin_all,
     fused_view_class_counts,
     rasterize_setup,
     setup_from_soa,
     tri_to_soa,
 )
+from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils import geometric
+from geograypher_tpu_torch.utils.meshio import load_mesh
+from geograypher_tpu_torch.utils.parsing import (
+    crs_from_srs_text,
+    parse_metashape_mesh_metadata,
+    parse_transform_metashape,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -71,7 +78,7 @@ class TexturedMesh:
         IDs_to_labels: typing.Optional[dict] = None,
         shift: typing.Optional[np.ndarray] = None,
         raster_config: RasterConfig = DEFAULT_RASTER_CONFIG,
-        device="cpu",
+        device="cuda",
     ):
         """Load geometry.
 
@@ -82,7 +89,9 @@ class TexturedMesh:
                 shift.
             CRS: EPSG code the mesh vertices are in (None = local frame).
             shift: (3,) added to the vertices at load.
-            device: where per-view work runs ("cpu" or "cuda").
+            device: where per-view work runs: the card ("cuda", the
+                default; raises when there is none, never falls back to
+                the CPU) or "cpu" when asked for explicitly.
         """
         if downsample_target != 1.0 or texture is not None or ROI is not None:
             raise NotImplementedError(
@@ -91,6 +100,12 @@ class TexturedMesh:
             )
         del texture_column_name, ROI_buffer_meters  # only read with texture/ROI
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"TexturedMesh(device={str(device)!r}) needs a CUDA device "
+                "and torch.cuda.is_available() is False; pass device='cpu' "
+                "to run on the CPU"
+            )
         self.raster_config = raster_config
         self.IDs_to_labels = dict(IDs_to_labels) if IDs_to_labels else None
         self.vertex_texture: typing.Optional[np.ndarray] = None
@@ -102,8 +117,6 @@ class TexturedMesh:
             self.verts = np.asarray(verts, dtype=np.float64)
             self.faces = np.asarray(faces, dtype=np.int32)
         else:
-            from geograypher_tpu.utils.meshio import load_mesh
-
             self.verts, self.faces, attrs = load_mesh(mesh)
             if "colors" in attrs:
                 self.vertex_texture = attrs["colors"].astype(np.float64)
@@ -115,20 +128,12 @@ class TexturedMesh:
             self.verts = self.verts + np.asarray(shift, dtype=np.float64)
         # reproject to the internal ECEF frame when georeferenced
         if self.CRS is not None and self.CRS != EARTH_CENTERED_EARTH_FIXED_EPSG:
-            from geograypher_tpu.utils import crs as crs_utils
-
             self.verts = crs_utils.transform_points(
                 self.verts, self.CRS, EARTH_CENTERED_EARTH_FIXED_EPSG
             )
             self.CRS = EARTH_CENTERED_EARTH_FIXED_EPSG
 
     def _apply_transform_file(self, transform_filename: PATH_TYPE):
-        from geograypher_tpu.utils.parsing import (
-            crs_from_srs_text,
-            parse_metashape_mesh_metadata,
-            parse_transform_metashape,
-        )
-
         transform_filename = Path(transform_filename)
         if transform_filename.suffix.lower() != ".xml":
             return
@@ -162,16 +167,12 @@ class TexturedMesh:
     def get_vertices_in_CRS(self, output_CRS: typing.Optional[int]) -> np.ndarray:
         if output_CRS is None or self.CRS is None or output_CRS == self.CRS:
             return self.verts.copy()
-        from geograypher_tpu.utils import crs as crs_utils
-
         return crs_utils.transform_points(self.verts, self.CRS, output_CRS)
 
     def get_working_projected_CRS(self) -> int:
         """A projected (UTM) CRS for 2D geospatial math near the mesh."""
         if self.CRS is None:
             raise ValueError("Mesh is not georeferenced")
-        from geograypher_tpu.utils import crs as crs_utils
-
         lla = crs_utils.transform_points(self.verts[:1], self.CRS, LAT_LON_EPSG)
         return crs_utils.utm_epsg_for(lla[0, 0], lla[0, 1])
 
@@ -277,7 +278,9 @@ class TexturedMesh:
         config: typing.Optional[RasterConfig] = None,
     ) -> int:
         """Number of candidate entries the tile lists' capacities drop for
-        one view's pinhole render (0 = lossless)."""
+        one view's pinhole render (0 = lossless).  With level S on, the
+        L0..L3 lists are counted after its diversion; level S itself has
+        no capacity."""
         config = config or self.raster_config
         batch = cameras.get_camera_batch(
             [index], image_scale=render_img_scale, device=self.device
@@ -287,7 +290,7 @@ class TexturedMesh:
             batch.world_to_cam[0], batch.f[0],
             batch.image_width, batch.image_height, config.znear,
         )
-        binned = bin_triangles(setup, config, batch.image_height, batch.image_width)
+        binned, _ = bin_all(setup, config, batch.image_height, batch.image_width)
         overflow = int(binned.overflow)
         if overflow:
             logger.warning(
@@ -349,8 +352,9 @@ class TexturedMesh:
 
         Exact one-hot images take the fused path
         (:func:`~geograypher_tpu_torch.ops.rasterize.fused_view_class_counts`:
-        the raster kernel, then the counts kernel), which rasterizes a
-        distorted sensor natively in its distorted pixel space.  Other
+        with level S on (``config.subtile``) the sub-tile raster first,
+        then the raster kernel, then the counts kernel), which rasterizes
+        a distorted sensor natively in its distorted pixel space.  Other
         images keep per-channel means over the pinhole pix2face.  After
         the last view it raises if any view's tile lists dropped
         candidates.

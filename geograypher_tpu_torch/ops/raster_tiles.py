@@ -19,7 +19,9 @@ Tie rules, shared by both versions: inside a candidate group the larger
 (L0, then L1, then L2 + global) only a strictly larger 1/z replaces the
 earlier winner.  This is the Pallas kernel's rule; the JAX XLA resolve
 differs only on exact ties between an L2 and a global candidate, where
-it keeps list order.
+it keeps list order.  With ``s_init``, the level-S sub-tile raster's
+(1/z, face) planes (``ops/subtile.py``) seed every pixel's winner, so
+an L0+ candidate replaces an S winner only with a strictly larger 1/z.
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ def raster_tiles_plain(
     config,
     image_h: int,
     image_w: int,
+    s_init=None,
 ) -> torch.Tensor:
     """Plain PyTorch z-resolve (port of ``_raster_tiles_xla``).
 
@@ -108,9 +111,18 @@ def raster_tiles_plain(
 
     neg = torch.tensor(float("-inf"), dtype=planes.dtype, device=dev)
     big = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
-    best_w = torch.full((n_tiles, th * tw), float("-inf"), dtype=planes.dtype,
+    best_w = torch.full((nty * th, ntx * tw), float("-inf"), dtype=planes.dtype,
                         device=dev)
-    best_id = torch.full((n_tiles, th * tw), -1, dtype=torch.int32, device=dev)
+    best_id = torch.full((nty * th, ntx * tw), -1, dtype=torch.int32, device=dev)
+    if s_init is not None:
+        best_w[:image_h, :image_w] = s_init[0]
+        best_id[:image_h, :image_w] = s_init[1]
+
+    def tiles(img):  # (nty*th, ntx*tw) -> (T, P)
+        return img.reshape(nty, th, ntx, tw).permute(0, 2, 1, 3).reshape(
+            n_tiles, th * tw)
+
+    best_w, best_id = tiles(best_w), tiles(best_id)
     for ids, ok in tile_candidate_groups(cand, counts, config, image_h, image_w):
         gw = torch.full_like(best_w, float("-inf"))
         gid = torch.full_like(best_id, INT32_MAX)
@@ -144,7 +156,7 @@ def raster_tiles_plain(
     return img.reshape(nty * th, ntx * tw)[:image_h, :image_w].contiguous()
 
 
-def _check(planes, cand, counts, config, image_h, image_w):
+def _check(planes, cand, counts, config, image_h, image_w, s_init):
     if planes.dtype != torch.float32 or planes.ndim != 2 or planes.shape[1] != 12:
         raise ValueError(f"planes must be float32 (F, 12), got "
                          f"{planes.dtype} {tuple(planes.shape)}")
@@ -170,6 +182,14 @@ def _check(planes, cand, counts, config, image_h, image_w):
                 raise ValueError(f"{name}[{lvl}] must be contiguous")
     if not planes.is_contiguous():
         raise ValueError("planes must be contiguous")
+    if s_init is not None:
+        for name, t, dtype in (("s_init[0]", s_init[0], torch.float32),
+                               ("s_init[1]", s_init[1], torch.int32)):
+            if t.dtype != dtype or tuple(t.shape) != (image_h, image_w):
+                raise ValueError(f"{name} must be {dtype} {(image_h, image_w)}, "
+                                 f"got {t.dtype} {tuple(t.shape)}")
+            if t.device != planes.device or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {planes.device}")
 
 
 def raster_tiles(
@@ -179,6 +199,7 @@ def raster_tiles(
     config,
     image_h: int,
     image_w: int,
+    s_init=None,
 ) -> torch.Tensor:
     """(image_h, image_w) int32 pix2face, -1 for background.
 
@@ -191,15 +212,17 @@ def raster_tiles(
         counts: per-level int32 true counts in face slots,
             (n_tiles_l,) for levels 0-2 and (1,) for the global list.
         config: the ``RasterConfig`` the lists were binned with.
+        s_init: optional level-S carry ``(best_w, best_id)``, (H, W)
+            float32 and int32 from ``ops.subtile.s_raster``.
 
     A CUDA tensor launches the CUDA kernel (or raises); only a CPU tensor
     runs the plain version.
     """
     global launches
-    _check(planes, cand, counts, config, image_h, image_w)
+    _check(planes, cand, counts, config, image_h, image_w, s_init)
     if planes.device.type == "cpu":
         return raster_tiles_plain(planes, cand, counts, config, image_h,
-                                  image_w)
+                                  image_w, s_init)
     if planes.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {planes.device}")
     th, tw = config.tile_h, config.tile_w
@@ -216,6 +239,7 @@ def raster_tiles(
         planes.data_ptr(),
         *[c.data_ptr() for c in cand],
         *[n.data_ptr() for n in counts],
+        *((None, None) if s_init is None else (t.data_ptr() for t in s_init)),
         out.data_ptr(),
         image_h, image_w, th, tw, nty0, ntx0, nty1, ntx1, nty2, ntx2,
         config.level_scales[1], config.level_scales[2],

@@ -13,9 +13,13 @@ Semantics kept from the JAX package: inclusive edge tests on both
 windings, depth ties to the lowest face id, triangles that straddle the
 near plane are dropped, geometry outside the distortion polynomial's
 injective domain is dropped, and no capacity drop is silent (``overflow``
-counts every candidate a tile list could not hold).  Not ported: the
-level-S sub-tile raster, occupied-pair compaction and the TPU-only
-tuning fields of the JAX ``RasterConfig``.
+counts every candidate a tile list could not hold).
+
+With ``RasterConfig.subtile`` set, :func:`bin_all` first diverts small
+face units to the level-S sub-tile lists (``ops/subtile.py``); their
+winners seed the raster kernel's per-pixel carry.  Not ported:
+occupied-pair compaction and the TPU-only tuning fields of the JAX
+``RasterConfig``.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from geograypher_tpu_torch.ops.aggregate import project_image_class_counts
 from geograypher_tpu_torch.ops.face_counts import face_class_counts
 from geograypher_tpu_torch.ops.raster_tiles import (
     INT32_MAX,
     raster_tiles,
     tile_candidate_groups,
 )
+from geograypher_tpu_torch.ops.subtile import bin_subtiles, s_raster
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +58,26 @@ class RasterConfig:
     # level-0 tile window (rows, cols), or an int for a square window
     l0_window: Union[int, Tuple[int, int]] = 2
     # first face id of an oversized-face tail, binned to the global level
+    # (and never diverted to level S)
     global_from: Optional[int] = None
+    # level-S sub-tile raster (ops/subtile.py): cell size (h, w), or None
+    # to disable.  A unit of s_block consecutive faces whose box fits an
+    # s_window of cells is resolved against those cells only; a bin_block
+    # block leaves the tile lists when every one of its units fits.  The
+    # S lists are built at each view's exact demand, so level S has no
+    # capacity and can never drop a candidate.
+    subtile: Optional[Tuple[int, int]] = None
+    s_window: Tuple[int, int] = (3, 2)
+    s_block: int = 4
+
+    def __post_init__(self):
+        if self.subtile is not None and (
+            self.s_block < 1 or self.bin_block % self.s_block
+        ):
+            raise ValueError(
+                f"level S needs bin_block ({self.bin_block}) to be a "
+                f"multiple of s_block ({self.s_block})"
+            )
 
     def grids(self, image_h: int, image_w: int):
         """Tile-grid shapes (nty, ntx) for levels 0..2."""
@@ -260,6 +285,7 @@ def bin_triangles(
     image_h: int,
     image_w: int,
     return_census: bool = False,
+    exclude_blocks: Optional[torch.Tensor] = None,
 ):
     """Assign triangles to tile candidate lists with one sort.
 
@@ -273,6 +299,9 @@ def bin_triangles(
 
     With ``return_census`` it returns the exact per-level maximum tile
     occupancy (4,) in units instead, independent of the caps.
+    ``exclude_blocks`` ((F / bin_block,) bool) drops the blocks that level
+    S took (exclusive assignment: no face is resolved or counted twice),
+    from the lists and from the census alike.
     """
     dev = setup.valid.device
     f_count = setup.valid.shape[0]
@@ -292,6 +321,8 @@ def bin_triangles(
         px1 = torch.where(valid, px1, -1).reshape(-1, bb).amax(1)
         valid = valid.reshape(-1, bb).any(1)
         f_count //= bb
+    if exclude_blocks is not None:
+        valid = valid & ~exclude_blocks
     py0, px0, py1, px1 = (v.long() for v in (py0, px0, py1, px1))
 
     level_base = []
@@ -393,6 +424,21 @@ def bin_triangles(
     return BinnedTriangles(cand=tuple(cands), counts=tuple(cnts), overflow=overflow)
 
 
+def bin_all(setup: TriangleSetup, config: RasterConfig, image_h: int,
+            image_w: int):
+    """Bin at every level: (BinnedTriangles, SubtileBinned or None).
+
+    With ``config.subtile`` set, small units go to the level-S sub-tile
+    lists first and their blocks are excluded from the L0..L3 lists.
+    """
+    if config.subtile is None:
+        return bin_triangles(setup, config, image_h, image_w), None
+    sb = bin_subtiles(setup, config, image_h, image_w)
+    binned = bin_triangles(setup, config, image_h, image_w,
+                           exclude_blocks=sb.s_mask8)
+    return binned, sb
+
+
 def binned_face_lists(binned: BinnedTriangles, config: RasterConfig):
     """The raster kernel's inputs: per-level FACE-id lists (block ids
     expanded) and their counts in face slots."""
@@ -422,13 +468,47 @@ def rasterize_setup(
     image_h: int,
     image_w: int,
 ):
-    """Bin + rasterize prepared triangles -> (pix2face, binned)."""
-    binned = bin_triangles(setup, config, image_h, image_w)
-    cand, counts = binned_face_lists(binned, config)
-    pix2face = raster_tiles(
-        setup.planes.contiguous(), cand, counts, config, image_h, image_w
-    )
+    """Bin + rasterize prepared triangles -> (pix2face, binned).
+
+    With level S on, the sub-tile raster runs first and its per-pixel
+    (1/z, face) winners seed the tile raster, where a tile-list candidate
+    replaces an S winner only with a strictly larger 1/z.
+    """
+    pix2face, binned, _ = _rasterize_levels(setup, config, image_h, image_w)
     return pix2face, binned
+
+
+def _rasterize_levels(setup, config, image_h, image_w):
+    """(pix2face, binned, sb): :func:`rasterize_setup` with its level-S
+    lists (None when level S is off)."""
+    binned, sb = bin_all(setup, config, image_h, image_w)
+    cand, counts = binned_face_lists(binned, config)
+    planes = setup.planes.contiguous()
+    s_init = None if sb is None else s_raster(sb, planes, config, image_h,
+                                               image_w)
+    pix2face = raster_tiles(planes, cand, counts, config, image_h, image_w,
+                            s_init=s_init)
+    return pix2face, binned, sb
+
+
+def rasterize_and_count(
+    setup: TriangleSetup,
+    class_image: torch.Tensor,
+    config: RasterConfig,
+    image_h: int,
+    image_w: int,
+    n_faces: int,
+    n_classes: int,
+    return_overflow: bool = False,
+):
+    """One view's (n_faces, n_classes) float32 pixel counts from prepared
+    triangles: the raster (level S first when configured), then the
+    counts kernel over the finished pix2face.  With ``return_overflow``
+    also the candidates the tile lists dropped (nonzero = incomplete).
+    """
+    pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
+    counts = project_image_class_counts(pix2face, class_image, n_faces, n_classes)
+    return (counts, binned.overflow) if return_overflow else counts
 
 
 def fused_view_class_counts(
@@ -448,21 +528,29 @@ def fused_view_class_counts(
 ):
     """One view's (counts, overflow, total_candidates).
 
-    Camera transform + setup + binning + the raster kernel + the counts
-    kernel.  ``counts`` is (n_faces, n_classes) float32 (exact integers,
-    counted in int32); ``overflow > 0`` means a tile list dropped
-    candidates and the counts are incomplete -- callers must fail.
-    ``use_dist`` rasterizes in the sensor's distorted pixel space.
+    Camera transform + setup + binning + (with level S on) the sub-tile
+    raster + the raster kernel + the counts kernel.  ``counts`` is
+    (n_faces, n_classes) float32 (exact integers, counted in int32);
+    ``overflow > 0`` means a tile list dropped candidates and the counts
+    are incomplete -- callers must fail.  ``total_candidates`` counts the
+    binned units of every list, level-S pairs included.  ``use_dist``
+    rasterizes in the sensor's distorted pixel space.
+
+    With level S on, one launch of the counts kernel over the S-seeded
+    pix2face counts the S winners' pixels too: it computes what the TPU
+    chain's S count kernel and face-block folds compute together.
     """
     setup = setup_from_soa(
         tri_soa, world_to_cam, f, image_w, image_h, config.znear,
         distortion=(dist8, pcx, pcy) if use_dist else None,
     )
-    pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
+    pix2face, binned, sb = _rasterize_levels(setup, config, image_h, image_w)
     counts = face_class_counts(
         pix2face, class_image.to(torch.int32).contiguous(), n_faces, n_classes
     )
     ncand = sum(c.sum() for c in binned.counts)
+    if sb is not None:
+        ncand = ncand + sb.units.shape[0]
     return counts.to(torch.float32), binned.overflow, ncand
 
 

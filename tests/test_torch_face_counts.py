@@ -18,6 +18,7 @@ from geograypher_tpu_torch import interop
 from geograypher_tpu_torch.ops import rasterize as tr
 from geograypher_tpu_torch.ops.aggregate import project_image_class_counts
 from geograypher_tpu_torch.ops.face_counts import face_class_counts
+from tests.test_torch_rasterize import one_torch_thread  # noqa: F401
 
 N_CLASSES = 6
 DIST8 = np.array([0.02, -0.01, 0.0, 0.0, 1e-3, 0.0, 0.0, 0.0], np.float32)
@@ -141,3 +142,30 @@ def test_face_class_counts_checks_inputs():
         face_class_counts(p2f.T, p2f.T, 3, 2)
     with pytest.raises(ValueError, match="int32 flattened"):
         project_image_class_counts(p2f, p2f, 2**30, 4)
+
+
+def test_tiled_counts_equal_jax_tile_class_counts():
+    """B4's counterpart: the port's ``project_image_class_counts_tiled``
+    exactly equal to the JAX one (Pallas ``tile_class_counts`` in
+    interpret mode, then the face-block folds) on the same pix2face."""
+    from geograypher_tpu.ops.agg_tiled import (
+        project_image_class_counts_tiled as jax_tiled,
+    )
+    from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
+
+    soa, w2c, f, cls = scene(1)
+    jcfg = jr.RasterConfig(caps=(112, 80, 8, 8), backend="pallas")
+    setup = jr.setup_from_soa(jnp.asarray(soa), jnp.asarray(w2c), jnp.float32(f),
+                              W, H, jcfg.znear)
+    p2f, binned = jr.rasterize_setup(setup, jcfg, H, W)
+    p2f_tiles, _ = jr.rasterize_setup(setup, jcfg, H, W, return_tiles=True)
+    n_faces = soa.shape[1]
+    want, jover = jax_tiled(p2f_tiles, jnp.asarray(cls), binned, jcfg, H, W,
+                            n_faces, N_CLASSES)
+    assert int(jover) == 0
+    got, over = project_image_class_counts_tiled(
+        torch.tensor(np.asarray(p2f)), torch.as_tensor(cls), None,
+        interop.raster_config_from_jax(jcfg), H, W, n_faces, N_CLASSES)
+    assert got.dtype == torch.float32 and int(over) == 0
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.asarray(want).sum() > 1000

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from geograypher_tpu_torch.ops import face_counts, raster_tiles
+from geograypher_tpu_torch.ops import face_counts, raster_tiles, subtile
 from geograypher_tpu_torch.ops import rasterize as tr
 from geograypher_tpu_torch.utils.fixtures import (
     gather_tri_verts,
@@ -28,17 +28,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def view(device, bin_block):
+def view_setup(device):
     verts, faces = make_grid_mesh(
         n=41, size=4.0, z_fn=lambda x, y: 0.2 * np.sin(3 * x) * np.cos(2 * y)
     )
     c2w = oblique_camera(3.0, 180.0, 320, pitch_deg=32.0, azimuth_deg=135.0)
     tri = torch.as_tensor(gather_tri_verts(verts, faces), dtype=torch.float32)
     w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32)
-    setup = tr.setup_from_soa(
+    return tr.setup_from_soa(
         tr.tri_to_soa(tri).to(device), w2c.to(device),
         torch.tensor(180.0, device=device), 320, 200,
     )
+
+
+def view(device, bin_block):
+    setup = view_setup(device)
     cfg = tr.RasterConfig(caps=(4096 // bin_block, 512, 64, 64),
                           bin_block=bin_block)
     cand, counts = tr.binned_face_lists(tr.bin_triangles(setup, cfg, 200, 320), cfg)
@@ -68,3 +72,31 @@ def test_counts_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert face_counts.launches == before + 1
     assert torch.equal(got, face_counts.face_class_counts_plain(p2f, cls, 5000, 8))
+
+
+def test_s_raster_and_carry_match_plain(cuda):
+    """Level S: the sub-tile kernel and the S-seeded tile raster against
+    their plain versions, bit for bit (the 41-grid has 3,200 faces, a
+    multiple of bin_block=8)."""
+    setup = view_setup(cuda)
+    cfg = tr.RasterConfig(caps=(512, 64, 64, 64), bin_block=8, l0_window=(5, 2),
+                          subtile=(8, 16))
+    binned, sb = tr.bin_all(setup, cfg, 200, 320)
+    assert int(binned.overflow) == 0 and sb.sub_ids.numel() > 0
+    planes = setup.planes.contiguous()
+    before = subtile.launches
+    s_w, s_id = subtile.s_raster(sb, planes, cfg, 200, 320)
+    torch.cuda.synchronize()
+    assert subtile.launches == before + 1
+    s_w_p, s_id_p = subtile.s_raster_plain(sb, planes, cfg, 200, 320)
+    assert torch.equal(s_id, s_id_p) and torch.equal(s_w, s_w_p)
+    assert (s_id >= 0).any()
+    cand, counts = tr.binned_face_lists(binned, cfg)
+    got = raster_tiles.raster_tiles(planes, cand, counts, cfg, 200, 320,
+                                    s_init=(s_w, s_id))
+    want = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, 200, 320,
+                                           s_init=(s_w, s_id))
+    assert torch.equal(got, want)
+    off = tr.RasterConfig(caps=(512, 64, 64, 64), bin_block=8, l0_window=(5, 2))
+    p2f_off, _ = tr.rasterize_setup(setup, off, 200, 320)
+    assert (got == p2f_off).float().mean().item() >= 0.999

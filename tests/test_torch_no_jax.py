@@ -1,8 +1,10 @@
-"""The port and chip_smoke.py import no JAX: the machine with the card has
-no jax (nor cv2, PIL or pandas), and chip_smoke.py's path needs nothing of
-the JAX package at all.  Checked in subprocesses, because
-tests/conftest.py imports jax into this one."""
+"""The port and chip_smoke.py import no JAX and nothing of the JAX
+package: the machine with the card has no jax (nor cv2, PIL or pandas),
+and the port keeps its own copies of the host helpers it needs.  Checked
+in subprocesses, because tests/conftest.py imports jax into this one."""
 
+import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,7 +33,7 @@ def loaded(*roots):
 IMPORT_ALL = REFUSE + r"""
 import importlib, pkgutil
 
-REFUSED = ("jax", "jaxlib", "cv2", "PIL", "pandas")
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas")
 refuse(*REFUSED)
 import geograypher_tpu_torch
 names = ["chip_smoke"] + [
@@ -46,7 +48,7 @@ print(len(names))
 
 # chip_smoke.py's main path at a tiny size on CPU tensors, with the whole
 # JAX package refused: the scene, the sorted mesh, a segmentor camera set
-# and the streaming aggregation
+# and the streaming aggregation, with level S off and on
 CHIP_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas")
 refuse(*REFUSED)
@@ -55,7 +57,8 @@ import chip_smoke as cs
 
 verts, faces = cs.make_grid_mesh(n=9, size=4.0,
                                  z_fn=lambda x, y: 0.1 * np.sin(3 * x))
-mesh = cs.TexturedMesh((verts, faces), raster_config=cs.RasterConfig())
+mesh = cs.TexturedMesh((verts, faces), raster_config=cs.RasterConfig(),
+                       device="cpu")
 mesh.spatial_sort_faces()
 w, h = 64, 48
 c2ws = [cs.nadir_camera(4.0, 40.0, w),
@@ -72,16 +75,42 @@ seen = info["projection_counts"] > 0
 assert avg.shape == (len(faces), 3) and seen.mean() > 0.5
 assert np.allclose(avg[seen].sum(axis=1), 1.0, atol=1e-5)
 assert np.isnan(avg[~seen]).all()
+s_cfg = cs.RasterConfig(bin_block=8, l0_window=(5, 2), subtile=(8, 16))
+mesh_s = cs.TexturedMesh((verts, faces), raster_config=s_cfg, device="cpu")
+mesh_s.spatial_sort_faces()
+cs.subtile.launches = 0
+avg_s, info_s = mesh_s.aggregate_projected_images(seg)
+seen_s = info_s["projection_counts"] > 0
+assert (seen_s == seen).mean() > 0.95
+assert np.allclose(avg_s[seen_s].sum(axis=1), 1.0, atol=1e-5)
+assert np.isnan(avg_s[~seen_s]).all()
+assert cs.subtile.launches == 0  # CPU tensors take the plain versions
 assert not loaded(*REFUSED), loaded(*REFUSED)
 print("ok")
 """
 
 
 def run(code):
+    # one intra-op thread: the tiny tensors gain nothing from more, and
+    # parallel test workers would oversubscribe the cores
     return subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-        text=True, timeout=300,
+        text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
+
+
+def test_no_port_file_imports_the_jax_package():
+    """A source scan: no import of ``geograypher_tpu`` (or jax) in any
+    file of the port or in chip_smoke.py, at module level or lazily."""
+    pattern = re.compile(r"^\s*(from|import)\s+(geograypher_tpu|jax)([.\s]|$)")
+    files = sorted((ROOT / "geograypher_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 25
+    bad = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pattern.match(line)]
+    assert not bad, bad
 
 
 def test_port_and_chip_smoke_import_no_jax():

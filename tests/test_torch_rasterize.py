@@ -24,6 +24,17 @@ from geograypher_tpu_torch.ops.raster_tiles import raster_tiles_plain
 DIST8 = np.array([0.02, -0.01, 0.0, 0.0, 1e-3, 0.0, 0.0, 0.0], np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's tests run small tensors through many short ops: one
+    intra-op thread each, so that parallel test workers do not
+    oversubscribe the cores (other files import this fixture)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def knife_edge(a, b, min_agree=0.99):
     """The raster contract of tests/test_pallas_raster.py: >= 99% of
     pixels agree and every disagreement is a face<->face swap."""
@@ -232,9 +243,14 @@ def test_raster_tie_rules():
 
 
 def test_subtile_config_refused():
-    cfg = dataclasses.replace(jr.RasterConfig(), subtile=(8, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        interop.raster_config_from_jax(cfg)
+    """A level-S config is carried across (the TPU's S capacities are
+    dropped); one whose bin_block is not a multiple of s_block is refused."""
+    cfg = dataclasses.replace(jr.RasterConfig(), bin_block=8, subtile=(8, 16),
+                              s_window=(2, 3), s_block=2, s_cap_chunks=16)
+    got = interop.raster_config_from_jax(cfg)
+    assert (got.subtile, got.s_window, got.s_block) == ((8, 16), (2, 3), 2)
+    with pytest.raises(ValueError, match="multiple of s_block"):
+        interop.raster_config_from_jax(dataclasses.replace(cfg, bin_block=1))
 
 
 def test_raster_tiles_checks_inputs():

@@ -19,6 +19,7 @@ from geograypher_tpu.predictors.segmentors import ArraySegmentor
 from geograypher_tpu.utils.fixtures import make_grid_mesh, nadir_camera, oblique_camera
 from geograypher_tpu_torch import interop
 from geograypher_tpu_torch.ops.aggregate import find_argmax_nonzero_value
+from tests.test_torch_rasterize import one_torch_thread  # noqa: F401
 
 N_CLASSES = 5
 W, H = 128, 96
@@ -76,7 +77,7 @@ def test_slice_matches_jax_xla(survey):
     ref, ref_info = jmesh.aggregate_projected_images(
         jcams, use_planned=False, config=XLA
     )
-    mesh = interop.mesh_from_jax(jmesh)
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
     avg, info = mesh.aggregate_projected_images(
         interop.cameras_from_jax(jcams),
         config=interop.raster_config_from_jax(XLA),
@@ -102,7 +103,7 @@ def test_slice_matches_jax_xla(survey):
 def test_check_raster_capacity_matches_jax(survey):
     jmesh, jcams = survey
     small = JaxRasterConfig(caps=(24, 8, 4, 4), backend="xla")
-    mesh = interop.mesh_from_jax(jmesh)
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
     cams = interop.cameras_from_jax(jcams)
     for i in (0, 1):
         want = jmesh.check_raster_capacity(jcams, i, config=small)
@@ -114,7 +115,7 @@ def test_check_raster_capacity_matches_jax(survey):
 def test_slice_matches_jax_pallas(survey):
     jmesh, jcams = survey
     ref, _ = jmesh.aggregate_projected_images(jcams, use_planned=False)
-    mesh = interop.mesh_from_jax(jmesh)
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
     avg, info = mesh.aggregate_projected_images(interop.cameras_from_jax(jcams))
     seen = info["projection_counts"] > 0
     np.testing.assert_array_equal(np.isnan(avg).all(axis=1), ~seen)
@@ -124,9 +125,27 @@ def test_slice_matches_jax_pallas(survey):
     np.testing.assert_allclose(np.nansum(avg[seen], axis=1), 1.0, atol=1e-5)
 
 
+def test_mesh_runs_on_the_card_unless_asked_for_the_cpu(survey):
+    """``TexturedMesh`` and ``mesh_from_jax`` default to CUDA and raise
+    without it: no silent fallback to the CPU."""
+    from geograypher_tpu_torch.meshes.mesh import TexturedMesh
+
+    jmesh, _ = survey
+    geometry = (np.array(jmesh.verts), np.array(jmesh.faces))
+    if torch.cuda.is_available():
+        assert TexturedMesh(geometry).device.type == "cuda"
+        assert interop.mesh_from_jax(jmesh).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TexturedMesh(geometry)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.mesh_from_jax(jmesh)
+    assert TexturedMesh(geometry, device="cpu").device.type == "cpu"
+
+
 def test_planned_aggregation_not_ported(survey):
     jmesh, jcams = survey
-    mesh = interop.mesh_from_jax(jmesh)
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         mesh.aggregate_projected_images(
             interop.cameras_from_jax(jcams), use_planned=True
@@ -135,7 +154,7 @@ def test_planned_aggregation_not_ported(survey):
 
 def test_batched_views_not_ported(survey):
     jmesh, jcams = survey
-    mesh = interop.mesh_from_jax(jmesh)
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         mesh.aggregate_projected_images(
             interop.cameras_from_jax(jcams), batch_size=2

@@ -76,3 +76,94 @@ def test_constants_match_jax():
     for name in ("LAT_LON_EPSG", "EARTH_CENTERED_EARTH_FIXED_EPSG",
                  "EXAMPLE_INTRINSICS", "PATH_TYPE"):
         assert getattr(tc, name) == getattr(jc, name)
+
+
+# -- the port's own copies of the JAX package's host helpers ----------------
+
+
+@pytest.fixture(scope="module")
+def survey(tmp_path_factory):
+    from geograypher_tpu.utils.example_data import create_example_survey
+
+    return create_example_survey(tmp_path_factory.mktemp("survey"))
+
+
+def test_crs_helpers_match_jax():
+    from geograypher_tpu.utils import crs as jcrs
+    from geograypher_tpu_torch.utils import crs as tcrs
+
+    rng = np.random.default_rng(7)
+    lla = np.stack([rng.uniform(-60, 70, 50), rng.uniform(-179, 179, 50),
+                    rng.uniform(-100, 3000, 50)], axis=1)
+    utm = tcrs.utm_epsg_for(36.0, -119.0)
+    assert utm == jcrs.utm_epsg_for(36.0, -119.0) == 32611
+    for lat, lon in lla[:, :2]:
+        assert tcrs.utm_epsg_for(lat, lon) == jcrs.utm_epsg_for(lat, lon)
+    site = lla[:5] * [0.01, 0.01, 1.0] + [36.0, -119.0, 0.0]
+    for pts, src, dst in ((lla, 4326, 4978), (site, 4326, utm), (site, 4326, 3857)):
+        out = tcrs.transform_points(pts, src, dst)
+        np.testing.assert_array_equal(out, jcrs.transform_points(pts, src, dst))
+        np.testing.assert_array_equal(tcrs.transform_points(out, dst, src),
+                                      jcrs.transform_points(out, dst, src))
+
+
+def test_metashape_parsers_match_jax(survey, tmp_path):
+    import xml.etree.ElementTree as ET
+
+    from geograypher_tpu.utils import parsing as jp
+    from geograypher_tpu_torch.utils import parsing as tp
+
+    cams = survey["cameras_file"]
+    np.testing.assert_array_equal(tp.parse_transform_metashape(cams),
+                                  jp.parse_transform_metashape(cams))
+    sensors = ET.parse(cams).getroot().find("chunk").find("sensors")
+    got, want = tp.parse_sensors(sensors), jp.parse_sensors(sensors)
+    assert got == want and len(got) >= 1
+    meta = tmp_path / "mesh_meta.xml"
+    meta.write_text("<x><SRS>EPSG::32611</SRS><SRSOrigin>1.5,2.5,-3</SRSOrigin></x>")
+    (crs_t, shift_t), (crs_j, shift_j) = (tp.parse_metashape_mesh_metadata(meta),
+                                          jp.parse_metashape_mesh_metadata(meta))
+    assert crs_t == crs_j and tp.crs_from_srs_text(crs_t) == jp.crs_from_srs_text(crs_j)
+    np.testing.assert_array_equal(shift_t, shift_j)
+
+
+def test_load_mesh_matches_jax(survey, tmp_path):
+    from geograypher_tpu.utils import meshio as jm
+    from geograypher_tpu_torch.utils import meshio as tm
+
+    verts, faces, _ = jm.load_mesh(survey["mesh_file"])
+    ascii_ply = tmp_path / "m.ply"
+    jm.save_mesh(ascii_ply, verts, faces, binary=False)
+    for path in (survey["mesh_file"], ascii_ply):
+        got, want = tm.load_mesh(path), jm.load_mesh(path)
+        for a, b in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(a, b)
+        assert got[2].keys() == want[2].keys()
+    assert len(faces) > 100
+
+
+def test_lookup_segmentor_and_image_io_match_jax(survey, tmp_path):
+    from geograypher_tpu.predictors.segmentors import LookUpSegmentor as JLookUp
+    from geograypher_tpu.utils.io import read_image_or_numpy as jread
+    from geograypher_tpu_torch.predictors.segmentors import LookUpSegmentor as TLookUp
+    from geograypher_tpu_torch.utils.files import ensure_containing_folder
+    from geograypher_tpu_torch.utils.io import read_image_or_numpy as tread
+
+    n = survey["n_classes"]
+    images = sorted(p for p in survey["image_folder"].iterdir())
+    jseg = JLookUp(survey["image_folder"], survey["label_folder"], n)
+    tseg = TLookUp(survey["image_folder"], survey["label_folder"], n)
+    for img in images[:2]:
+        np.testing.assert_array_equal(tread(img), jread(img))
+        np.testing.assert_array_equal(tseg.segment_image(None, img),
+                                      jseg.segment_image(None, img))
+    # a seeded label array with out-of-range ids, served from .npy
+    labels = np.random.default_rng(3).integers(-1, n + 1, (12, 10))
+    base, look = tmp_path / "img", tmp_path / "lab"
+    target = ensure_containing_folder(look / "a" / "v.npy")
+    assert target.parent.is_dir()
+    np.save(target, labels)
+    fname = base / "a" / "v.JPG"
+    got = TLookUp(base, look, n).segment_image(None, fname)
+    np.testing.assert_array_equal(got, JLookUp(base, look, n).segment_image(None, fname))
+    assert np.isnan(got[labels < 0]).all()

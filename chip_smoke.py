@@ -13,7 +13,11 @@ Phases (each prints one line; any failure raises and exits nonzero):
    (f=2000) and an oblique view (f=2600, pitch 30 deg) at the main path's
    configuration, the nadir view again at ``bin_block=8`` (the
    configuration of the TPU's 8-face-unit fold), and a low oblique view
-   whose near faces fill the L2 and global candidate lists;
+   whose near faces fill the L2 and global candidate lists; then a
+   knife-edge probe (``knife_edge_triangles``: vertices on and within
+   1e-4 px of pixel centres, axis-aligned edges, slivers, edges longer
+   than 2^18 px) through both rasters at the main and the level-S
+   configurations;
 3. the main path: ``TexturedMesh.aggregate_projected_images`` over 8 4K
    views (6 pinhole, 2 Brown-Conrady) of seeded one-hot labels, with
    every kernel's launch count, then view 0 re-run through the plain
@@ -66,10 +70,12 @@ from geograypher_tpu_torch.ops.rasterize import (
     rasterize_setup,
     rasterize_triangles,
     setup_from_soa,
+    setup_triangles,
 )
 from geograypher_tpu_torch.utils.fixtures import (
     brute_force_pix2face,
     gather_tri_verts,
+    knife_edge_triangles,
     make_grid_mesh,
     nadir_camera,
     oblique_camera,
@@ -147,6 +153,39 @@ def _ab_ms(fn_a, fn_b, runs=5):
     return ((ta1 + ta2) / 2, abs(ta1 - ta2)), ((tb1 + tb2) / 2, abs(tb1 - tb2))
 
 
+def _profile(fn, runs=5):
+    """``fn`` run ``runs`` times under ``torch.profiler`` after a warm-up:
+    (device busy share of the window, {kernel: device ms per run}, top
+    10), or (None, {}) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(runs):
+                fn()
+            end.record()
+            end.synchronize()
+    except RuntimeError:  # a card without profiler access: not measured
+        return None, {}
+    wall_ms = start.elapsed_time(end)
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key[:60]
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / runs
+    if not kernels:
+        return None, {}
+    busy = sum(kernels.values()) * runs / wall_ms
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    return busy, top
+
+
 def _bound(n_bytes, n_flop):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
     the FP32 operations over the FP32 peak."""
@@ -167,8 +206,10 @@ def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None):
     """The tile raster's bound on this view: each face of the tile lists
     (those level S did not take, ``s_mask8``) over its own box; each
     input read once, the pix2face written once.  Also the candidate-pixels
-    the kernel evaluates: every L0 tile's in-image pixels against its own,
-    its L1 and L2 parents' and the global list's counts."""
+    the kernel evaluates (every group candidate over the warp rectangles
+    its cull box meets, ``raster_tiles.kernel_cand_pixels``) and what
+    whole tiles would cost: every L0 tile's in-image pixels against its
+    own, its L1 and L2 parents' and the global list's counts."""
     th, tw = cfg.tile_h, cfg.tile_w
     nty0, ntx0 = cfg.grids(H, W)[0]
     p1, p2 = raster_tiles._parents(cfg, H, W, planes.device)
@@ -176,7 +217,9 @@ def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None):
          + counts[3].long())
     t = torch.arange(nty0 * ntx0, device=planes.device)
     pix = ((H - t // ntx0 * th).clamp(max=th) * (W - t % ntx0 * tw).clamp(max=tw))
-    cand_pixels = int((n * pix).sum())
+    tile_pixels = int((n * pix).sum())
+    cand_pixels = raster_tiles.kernel_cand_pixels(planes, setup.bbox, cand, counts,
+                                                  cfg, H, W)
     listed = (None if s_mask8 is None
               else ~s_mask8.repeat_interleave(cfg.bin_block))
     need_pixels = _box_pixels(setup, listed)
@@ -184,25 +227,31 @@ def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None):
                + sum(c.numel() * 4 for c in counts) + H * W * 4
                + (0 if s_init is None else 2 * H * W * 4))
     return (_bound(n_bytes, FLOP_PER_CAND_PIXEL * need_pixels), need_pixels,
-            cand_pixels)
+            cand_pixels, tile_pixels)
 
 
-def _s_raster_bound(setup, sb, cfg):
+def _s_raster_bound(setup, su, cfg):
     """The sub-tile raster's bound: each face level S took over its own
-    box; the CSR lists and the S units' plane rows read once, both (H, W)
-    planes written once.  Also the candidate-pixels the kernel evaluates:
-    every S face slot against its sub-tile's pixels."""
+    box; the CSR lists (``bin_subtiles``, built here untimed) and the S
+    units' plane rows read once, both (H, W) planes written once.  Also
+    the candidate-pixels the kernel evaluates (each S face over its
+    domain, ``subtile.s_face_domains``) and what every S face slot over
+    its sub-tiles' pixels would cost."""
+    sb = subtile.bin_subtiles(setup, cfg, H, W)
     sh, sw = cfg.subtile
     _, nsx = subtile.subtile_grid(cfg, H, W)
     sub = sb.sub_ids.long()
     pix = ((H - sub // nsx * sh).clamp(max=sh) * (W - sub % nsx * sw).clamp(max=sw))
-    cand_pixels = int((sb.sub_count.long() * cfg.s_block * pix).sum())
+    subtile_pixels = int((sb.sub_count.long() * cfg.s_block * pix).sum())
+    dom = subtile.s_face_domains(su, setup, cfg, H, W)
+    cand_pixels = int(((dom[:, 2] - dom[:, 0] + 1).clamp(min=0)
+                       * (dom[:, 3] - dom[:, 1] + 1).clamp(min=0)).sum())
     need_pixels = _box_pixels(setup, sb.s_mask8.repeat_interleave(cfg.bin_block))
     n_units = int(torch.unique(sb.units).numel())
     n_bytes = (4 * (sb.units.numel() + 3 * sb.sub_ids.numel())
                + n_units * cfg.s_block * 48 + 2 * H * W * 4)
     return (_bound(n_bytes, FLOP_PER_CAND_PIXEL * need_pixels), need_pixels,
-            cand_pixels)
+            cand_pixels, subtile_pixels, sb)
 
 
 def _counts_bound(n_faces):
@@ -268,8 +317,8 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
     if int(binned.overflow):
         raise RuntimeError(f"{name}: caps {cfg.caps} overflow ({int(binned.overflow)})")
     cand, counts = binned_face_lists(binned, cfg)
-    planes = setup.planes.contiguous()
-    p2f = raster_tiles.raster_tiles(planes, cand, counts, cfg, H, W)
+    planes, bbox = setup.planes.contiguous(), setup.bbox
+    p2f = raster_tiles.raster_tiles(planes, bbox, cand, counts, cfg, H, W)
     p2f_plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, H, W)
     torch.cuda.synchronize()
     if not torch.equal(p2f, p2f_plain):
@@ -285,8 +334,8 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
             f"counts kernel vs plain on {name}: max |diff| "
             f"{int((cnt - cnt_plain).abs().max())}"
         )
-    (raster_bound_ms, raster_bound_by), need_pixels, cand_pixels = _raster_bound(
-        setup, planes, cand, counts, cfg)
+    (raster_bound_ms, raster_bound_by), need_pixels, cand_pixels, tile_pixels = (
+        _raster_bound(setup, planes, cand, counts, cfg))
     counts_bound_ms, counts_bound_by = _counts_bound(n_faces)
     row = dict(
         view=name, bin_block=cfg.bin_block,
@@ -297,7 +346,7 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
         raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
         counts_max_abs_err=int((cnt - cnt_plain).abs().max()),
         raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
-            planes, cand, counts, cfg, H, W)),
+            planes, bbox, cand, counts, cfg, H, W)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
             planes, cand, counts, cfg, H, W)),
         counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
@@ -305,7 +354,8 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
         counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
             p2f, cls, n_faces, N_CLASSES)),
         counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
-        raster_cand_pixels=cand_pixels, raster_need_pixels=need_pixels,
+        raster_cand_pixels=cand_pixels, raster_tile_cand_pixels=tile_pixels,
+        raster_need_pixels=need_pixels,
         raster_bound_ms=raster_bound_ms, raster_bound_by=raster_bound_by,
         counts_bound_ms=counts_bound_ms, counts_bound_by=counts_bound_by,
     )
@@ -317,12 +367,14 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
     """Level S on one view: the sub-tile raster, the S-seeded tile raster
     and the counts kernel against their plain versions, bit for bit, and
     the median times of all six."""
-    binned, sb = bin_all(setup, cfg, H, W)
+    binned, su = bin_all(setup, cfg, H, W)
     if int(binned.overflow):
         raise RuntimeError(f"{name}: S caps {cfg.caps} overflow ({int(binned.overflow)})")
     cand, counts = binned_face_lists(binned, cfg)
-    planes = setup.planes.contiguous()
-    s_w, s_id = subtile.s_raster(sb, planes, cfg, H, W)
+    planes, bbox = setup.planes.contiguous(), setup.bbox
+    (s_bound_ms, s_bound_by), s_need_pixels, s_cand_pixels, s_sub_pixels, sb = (
+        _s_raster_bound(setup, su, cfg))
+    s_w, s_id = subtile.s_raster(su, setup, cfg, H, W)
     s_w_p, s_id_p = subtile.s_raster_plain(sb, planes, cfg, H, W)
     torch.cuda.synchronize()
     if not (torch.equal(s_w, s_w_p) and torch.equal(s_id, s_id_p)):
@@ -330,7 +382,8 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
             f"s_raster vs plain on {name}: {int((s_id != s_id_p).sum())} ids and "
             f"{int((s_w != s_w_p).sum())} depths differ")
     s_init = (s_w, s_id)
-    p2f = raster_tiles.raster_tiles(planes, cand, counts, cfg, H, W, s_init=s_init)
+    p2f = raster_tiles.raster_tiles(planes, bbox, cand, counts, cfg, H, W,
+                                    s_init=s_init)
     p2f_plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, H, W,
                                                 s_init=s_init)
     torch.cuda.synchronize()
@@ -344,26 +397,24 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
     if not torch.equal(cnt, cnt_plain):
         raise RuntimeError(f"counts kernel vs plain on {name} (level S): max |diff| "
                            f"{int((cnt - cnt_plain).abs().max())}")
-    (s_bound_ms, s_bound_by), s_need_pixels, s_cand_pixels = _s_raster_bound(
-        setup, sb, cfg)
-    (r_bound_ms, r_bound_by), r_need_pixels, r_cand_pixels = _raster_bound(
-        setup, planes, cand, counts, cfg, s_init, sb.s_mask8)
+    (r_bound_ms, r_bound_by), r_need_pixels, r_cand_pixels, r_tile_pixels = (
+        _raster_bound(setup, planes, cand, counts, cfg, s_init, su.s_mask8))
     row = dict(
         view=name, bin_block=cfg.bin_block, subtile=list(cfg.subtile),
         caps=list(cfg.caps), list_entries=[int(c.sum()) for c in counts],
-        s_pairs=int(sb.units.numel()), s_occupied=int(sb.sub_ids.numel()),
-        s_diverted_blocks=int(sb.s_mask8.sum()),
+        s_pairs=int(subtile.subtile_pairs(su)), s_occupied=int(sb.sub_ids.numel()),
+        s_diverted_blocks=int(su.s_mask8.sum()),
         s_covered=round((s_id >= 0).float().mean().item(), 6),
         coverage=round((p2f >= 0).float().mean().item(), 6),
         s_raster_max_abs_err=max(int((s_id - s_id_p).abs().max()),
                                  int((s_w != s_w_p).sum())),
         raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
         counts_max_abs_err=int((cnt - cnt_plain).abs().max()),
-        s_raster_ms=_cuda_ms(lambda: subtile.s_raster(sb, planes, cfg, H, W)),
+        s_raster_ms=_cuda_ms(lambda: subtile.s_raster(su, setup, cfg, H, W)),
         s_raster_plain_ms=_cuda_ms(
             lambda: subtile.s_raster_plain(sb, planes, cfg, H, W)),
         raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
-            planes, cand, counts, cfg, H, W, s_init=s_init)),
+            planes, bbox, cand, counts, cfg, H, W, s_init=s_init)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
             planes, cand, counts, cfg, H, W, s_init=s_init)),
         counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
@@ -371,13 +422,41 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
         counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
             p2f, cls, n_faces, N_CLASSES)),
         counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
-        s_cand_pixels=s_cand_pixels, raster_cand_pixels=r_cand_pixels,
+        s_cand_pixels=s_cand_pixels, s_subtile_cand_pixels=s_sub_pixels,
+        raster_cand_pixels=r_cand_pixels, raster_tile_cand_pixels=r_tile_pixels,
         s_need_pixels=s_need_pixels, raster_need_pixels=r_need_pixels,
         s_raster_bound_ms=s_bound_ms, s_raster_bound_by=s_bound_by,
         raster_bound_ms=r_bound_ms, raster_bound_by=r_bound_by,
     )
     _line("2s", **row)
     return row
+
+
+def _knife_edge_probe(cls, dev):
+    """Phase 2's knife-edge probe at 4K: ``knife_edge_triangles`` (vertices
+    on and within 1e-4 px of pixel centres, axis-aligned edges through
+    them, slivers, edges longer than 2^18 px), both rasters bit-equal to
+    their plain versions at the main configuration (``bin_block=1``) and
+    at the level-S configuration."""
+    tri = torch.as_tensor(knife_edge_triangles(W, H), device=dev)
+    setup = setup_triangles(tri, torch.tensor(1.0, device=dev), W, H)
+    n = tri.shape[0]
+    long_edges = int((setup.valid & (setup.planes[:, [0, 1, 3, 4, 6, 7]].abs()
+                                     .amax(dim=1) > 2.0**18)).sum())
+    if long_edges == 0:
+        raise RuntimeError("knife-edge probe: no valid face with an edge over 2^18 px")
+    cfg = RasterConfig()
+    cfg = dataclasses.replace(cfg, caps=_census_caps([setup], cfg)[1])
+    _kernel_vs_plain("knife_edge", setup, cfg, n, cls)
+    base = RasterConfig(bin_block=8, l0_window=(5, 2))
+    cfg_s = dataclasses.replace(base, subtile=(8, 16), s_window=(3, 2), s_block=4)
+    cfg_s = dataclasses.replace(cfg_s, caps=_census_caps([setup], cfg_s)[1])
+    _s_kernels_vs_plain("knife_edge", setup, cfg_s, n, cls)
+    _line("knife_edge", faces=n, valid=int(setup.valid.sum()),
+          long_edge_faces=long_edges,
+          exempt_faces=int((raster_tiles.cull_rule(setup.planes, H, W)
+                            == raster_tiles.CULL_EXEMPT).sum()),
+          raster_equal=True, s_raster_equal=True, s_carry_equal=True)
 
 
 def _probe_setup(soa, c2w, f, cfg):
@@ -490,6 +569,9 @@ def main():
     rows.append(_kernel_vs_plain("near_oblique_p60", near,
                                  dataclasses.replace(cfg, caps=caps_near),
                                  n_faces, cls))
+    # vertices on pixel centres, slivers, edges over 2^18 px: both
+    # redesigned rasters against their plain versions
+    _knife_edge_probe(cls, dev)
 
     # -- phase 3: the main path ---------------------------------------------------
     labels = rng.integers(0, N_CLASSES, (len(cams), H, W), dtype=np.int8)
@@ -538,7 +620,7 @@ def main():
     setup0 = setup_from_soa(soa, b0.world_to_cam[0], b0.f[0], W, H, cfg.znear)
     cand0, counts0 = binned_face_lists(bin_triangles(setup0, cfg, H, W), cfg)
     planes0 = setup0.planes.contiguous()
-    p2f_k = raster_tiles.raster_tiles(planes0, cand0, counts0, cfg, H, W)
+    p2f_k = raster_tiles.raster_tiles(planes0, setup0.bbox, cand0, counts0, cfg, H, W)
     p2f_p = raster_tiles.raster_tiles_plain(planes0, cand0, counts0, cfg, H, W)
     counts_p = face_counts.face_class_counts_plain(p2f_p, cls0, soa.shape[1], N_CLASSES)
     if (not torch.equal(p2f_k, p2f_p)
@@ -580,7 +662,8 @@ def main():
 
         s_i = setup_i()
         cand_i, counts_i = binned_face_lists(bin_triangles(s_i, cfg, H, W), cfg)
-        p2f_i = raster_tiles.raster_tiles(s_i.planes, cand_i, counts_i, cfg, H, W)
+        p2f_i = raster_tiles.raster_tiles(s_i.planes, s_i.bbox, cand_i, counts_i,
+                                          cfg, H, W)
         cls_i = cls_host.to(dev)
         _line("breakdown", view=i, distorted=use_dist,
               h2d_class_image_ms=_cuda_ms(lambda: cls_host.to(dev)),
@@ -588,7 +671,7 @@ def main():
               binning_ms=_cuda_ms(lambda: binned_face_lists(
                   bin_triangles(s_i, cfg, H, W), cfg)),
               raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
-                  s_i.planes, cand_i, counts_i, cfg, H, W)),
+                  s_i.planes, s_i.bbox, cand_i, counts_i, cfg, H, W)),
               counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
                   p2f_i, cls_i, n_faces, N_CLASSES)),
               fused_chain_ms=_cuda_ms(lambda: fused_view_class_counts(
@@ -748,10 +831,10 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
         b = cams.get_camera_batch([i], device=dev)
         use_dist = mesh._resolve_distortion(cams, i, None)
         s_i = setups[i]
-        binned_i, sb_i = bin_all(s_i, cfg_s, H, W)
+        binned_i, su_i = bin_all(s_i, cfg_s, H, W)
         cand_i, counts_i = binned_face_lists(binned_i, cfg_s)
-        planes_i = s_i.planes.contiguous()
-        init_i = subtile.s_raster(sb_i, planes_i, cfg_s, H, W)
+        planes_i, bbox_i = s_i.planes.contiguous(), s_i.bbox
+        init_i = subtile.s_raster(su_i, s_i, cfg_s, H, W)
         cand_o, counts_o = binned_face_lists(bin_triangles(s_i, cfg_off, H, W), cfg_off)
         cls_i = cls_host.to(dev)
 
@@ -762,25 +845,33 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
 
         (on_ms, on_spread), (off_ms, off_spread) = _ab_ms(
             lambda: chain(cfg_s), lambda: chain(cfg_off))
+        if i == 0:
+            # device kernels of each chain and the device's busy share of
+            # the window (the rest is launch gaps and host work)
+            busy_on, top_on = _profile(lambda: chain(cfg_s))
+            busy_off, top_off = _profile(lambda: chain(cfg_off))
+            _line("profile_s", view=i, s_on_busy_share=busy_on,
+                  s_on_kernels_ms=top_on, s_off_busy_share=busy_off,
+                  s_off_kernels_ms=top_off, card=smi)
         _line("breakdown_s", view=i, distorted=use_dist,
-              s_binning_ms=_cuda_ms(lambda: subtile.bin_subtiles(s_i, cfg_s, H, W)),
+              s_prep_ms=_cuda_ms(lambda: subtile.subtile_units(s_i, cfg_s)),
               tile_binning_ms=_cuda_ms(lambda: binned_face_lists(bin_triangles(
-                  s_i, cfg_s, H, W, exclude_blocks=sb_i.s_mask8), cfg_s)),
+                  s_i, cfg_s, H, W, exclude_blocks=su_i.s_mask8), cfg_s)),
               s_raster_ms=_cuda_ms(lambda: subtile.s_raster(
-                  sb_i, planes_i, cfg_s, H, W)),
+                  su_i, s_i, cfg_s, H, W)),
               raster_carry_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
-                  planes_i, cand_i, counts_i, cfg_s, H, W, s_init=init_i)),
+                  planes_i, bbox_i, cand_i, counts_i, cfg_s, H, W, s_init=init_i)),
               fused_chain_ms=on_ms, fused_chain_spread_ms=on_spread,
               off_binning_ms=_cuda_ms(lambda: binned_face_lists(
                   bin_triangles(s_i, cfg_off, H, W), cfg_off)),
               off_raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
-                  planes_i, cand_o, counts_o, cfg_off, H, W)),
+                  planes_i, bbox_i, cand_o, counts_o, cfg_off, H, W)),
               off_fused_chain_ms=off_ms, off_fused_chain_spread_ms=off_spread,
               list_entries=[int(c.sum()) for c in counts_i],
               off_list_entries=[int(c.sum()) for c in counts_o],
               # (sub-tile, unit) pairs and the most units of one sub-tile
               s_census=subtile.subtile_counts_census(s_i, cfg_s, H, W).tolist(),
-              s_occupied=int(sb_i.sub_ids.numel()), card=smi)
+              card=smi)
     return rows, launches
 
 

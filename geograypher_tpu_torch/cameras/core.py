@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from geograypher_tpu_torch.constants import EXAMPLE_INTRINSICS, PATH_TYPE
+from geograypher_tpu_torch.utils.device import resolve_device
 
 # Distortion parameter vector layout (Brown-Conrady, Metashape order).
 DISTORTION_KEYS = ("k1", "k2", "k3", "k4", "p1", "p2", "b1", "b2")
@@ -79,10 +80,12 @@ def make_camera_batch(
     image_height: int,
     distortion: Optional[np.ndarray] = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> CameraBatch:
     """Build a CameraBatch from host arrays; world_to_cam is inverted in
-    float64 before the cast."""
+    float64 before the cast.  ``device`` is the card by default (raises
+    without one); pass ``device="cpu"`` for CPU work."""
+    device = resolve_device(device, "make_camera_batch")
     c2w = np.asarray(cam_to_world, dtype=np.float64)
     if c2w.ndim == 2:
         c2w = c2w[None]
@@ -222,10 +225,13 @@ class CameraSet:
         self,
         indices: Optional[Sequence[int]] = None,
         image_scale: float = 1.0,
-        device="cpu",
+        device="cuda",
     ) -> CameraBatch:
         """Stacked CameraBatch on ``device`` for the given indices
-        (default: all); the cameras must share an image size."""
+        (default: all); the cameras must share an image size.  ``device``
+        is the card by default (raises without one); pass
+        ``device="cpu"`` for CPU work."""
+        device = resolve_device(device, "CameraSet.get_camera_batch")
         if indices is None:
             indices = list(range(len(self)))
         indices = tuple(int(i) for i in indices)

@@ -1,34 +1,54 @@
-// Level-S sub-tile z-pass: CSR lists of small face units per occupied
-// sub-tile -> image-layout (best 1/z, best face id) planes, the carry the
-// tile raster (raster_tiles.cu) starts from.
+// Level-S sub-tile z-pass: every face of every level-S unit -> image-layout
+// (best 1/z, best face id) planes, the carry the tile raster
+// (raster_tiles.cu) starts from.
 //
 // Replaces the TPU kernel geograypher_tpu/ops/subtile.py s_raster_pallas.
 // The TPU kernel packs units into 128-slot chunks of four 32-slot
 // quarters, evaluates planes localized to each sub-tile's origin through a
 // bf16 hi/lo matrix product and writes a sub-tile-major output that is
-// relaid afterwards.  None of that is carried over: one thread block per
-// OCCUPIED sub-tile (a compact list, so empty sky and off-mesh cells cost
-// nothing) reads its CSR range of units, one thread per pixel, and writes
-// the image layout directly.
+// relaid afterwards.  None of that is carried over, and neither are
+// per-sub-tile lists: the kernel is face-parallel.
+//
+// The function: for each pixel, among the faces of the level-S units whose
+// cell box (the unit's (h, w) sub-tile cells, ops/subtile.py _unit_fit)
+// holds the pixel, the larger 1/z wins and an exact tie goes to the lower
+// face id; (-inf, -1) where no S face covers the pixel.
+//
+// Shape: one thread per face slot of every unit; a thread whose unit is
+// not an S unit returns at once.  Each thread loops over its domain: the
+// face's box (setup.bbox) widened by 1 px, intersected with its unit's
+// cell box in pixels and with the image.  A face that eval_plane.cuh's
+// cull_rule exempts (an edge coefficient above 2^18, or a vertex sharper
+// than the rounding of its edges allows) loops over the whole cell box
+// instead, at most s_window cells (3x2 x 8x16 = 768 px): the plain
+// version evaluates a face over exactly its unit's cells, so the domain
+// must hold every pixel there that the rounded test can cover.  Sentinel
+// rows (invalid faces) cover nothing and return at once.
 //
 // Planes are evaluated at GLOBAL pixel centres (x + 0.5, y + 0.5) with the
 // tile raster's rounding (eval_plane.cuh), never at sub-tile-local
 // coordinates: coverage and depth are then bit-identical to the path with
 // level S off, and the kernel is bit-equal to its plain PyTorch version
-// (ops/subtile.py s_raster_plain).
+// (ops/subtile.py s_raster_plain).  No tensor cores: TF32 would round the
+// coefficients and flip knife-edge pixels.
 //
-// Tie rule (subtile.py s_raster_pallas): the larger 1/z wins and an exact
-// tie goes to the lower face id.  Units are ascending inside a sub-tile's
-// list and faces ascending inside a unit, so a strict > scan in list
-// order gives exactly that.
+// The z-test is one atomicMax per covered pixel on an (H, W) 64-bit key,
+// ordered_bits(w + 0.0f) << 32 | (0xFFFFFFFF - id): ordered_bits maps
+// floats to unsigned ints in order (sign bit flipped for non-negatives,
+// all bits inverted for negatives), and + 0.0f folds -0.0 into +0.0,
+// which the plain comparison treats as equal.  A max of this key is
+// exactly "larger w, then lower id" whatever order the atomics land in,
+// so the result is deterministic.  Key 0 never arises from a face (its
+// low word is at least 2^31), so the zeroed buffer means "none"; a second
+// small kernel unpacks the keys into the two planes.
 //
-// What bounds it on the H100: FP32 instruction throughput, 16 FLOP per
-// candidate-pixel (3 edge planes + 1 depth plane, 2 mul + 2 add each).
-// Its design answer is the sub-tile itself: a unit costs 128 pixels here
-// against 1024 in an 8 x 128 L0 tile, so the same faces take ~8x fewer
-// candidate-pixel evaluations.  Unit plane rows are staged in shared
-// memory in chunks of kChunk faces and the loop runs only to the
-// sub-tile's count.
+// What bounds it on the H100: with ~1.7e7 needed candidate-pixels per 4K
+// view (16 FLOP each) the work is ~0.004 ms of FP32; the (H, W) key
+// buffer (zero fill, atomics that resolve in L2, the unpack) and the
+// per-face plane rows are the traffic, so it is byte bound.  The design
+// answer is the per-face domain: candidate-pixels fall from every unit
+// slot over 128-pixel sub-tiles to each face over its own box, and no
+// per-sub-tile list (and so no sort) is needed.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -39,94 +59,117 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // sub-tiles of at most 256 pixels
-constexpr int kChunk = 128;       // face rows staged in shared memory
+constexpr int kThreads = 256;
 
 struct SRasterArgs {
-  const float* planes;     // (F, 12): 3 edge planes (A, B, C) + 1/z plane
-  const int* units;        // CSR unit ids, ascending per sub-tile
-  const int* sub_ids;      // (n_occ,) occupied sub-tile ids: cy * nsx + cx
-  const int* sub_start;    // (n_occ,) first entry in units
-  const int* sub_count;    // (n_occ,) units of the sub-tile
-  float* best_w;           // (H, W) 1/z of the winner, -inf = none
-  int* best_id;            // (H, W) face id of the winner, -1 = none
-  int H, W, sh, sw, nsx, s_block;
+  const float* planes;         // (F, 12): 3 edge planes (A, B, C) + 1/z
+  const int* bbox;             // (4, F): first/last covered row, column
+  const int* cells;            // (4, n_units): cy0, cx0, cy1, cx1
+  const unsigned char* s_unit; // (n_units,) bool: unit resolved at level S
+  unsigned long long* keys;    // (H, W) packed (1/z, id) maxima, 0 = none
+  int64_t F;
+  int64_t n_units;
+  int H, W, sh, sw, s_block;
 };
 
-__global__ void __launch_bounds__(kMaxThreads) s_raster_kernel(SRasterArgs a) {
-  __shared__ float sp[12][kChunk];
-  __shared__ int sid[kChunk];
+__device__ __forceinline__ unsigned ordered_bits(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
 
-  const int s = blockIdx.x;
-  const int sub = a.sub_ids[s];
-  const int start = a.sub_start[s];
-  const int n = a.sub_count[s] * a.s_block;  // face slots, uniform per block
-  const int p = threadIdx.x;
-  const int y = (sub / a.nsx) * a.sh + p / a.sw;
-  const int x = (sub % a.nsx) * a.sw + p % a.sw;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-  float bw = -CUDART_INF_F;
-  int bid = -1;
+__device__ __forceinline__ float from_ordered_bits(unsigned o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7FFFFFFFu) : ~o);
+}
 
-  for (int base = 0; base < n; base += kChunk) {
-    const int m = min(kChunk, n - base);
-    __syncthreads();  // the previous chunk is fully consumed
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const int j = base + i;
-      const int f = a.units[start + j / a.s_block] * a.s_block + j % a.s_block;
-      sid[i] = f;
-      const float* row = a.planes + static_cast<int64_t>(f) * 12;
-#pragma unroll
-      for (int c = 0; c < 12; ++c) sp[c][i] = row[c];
-    }
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float e0 = eval_plane(sp[0][i], sp[1][i], sp[2][i], px, py);
-      const float e1 = eval_plane(sp[3][i], sp[4][i], sp[5][i], px, py);
-      const float e2 = eval_plane(sp[6][i], sp[7][i], sp[8][i], px, py);
+__global__ void __launch_bounds__(kThreads) s_raster_kernel(SRasterArgs a) {
+  const int64_t f = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (f >= a.F) return;
+  const int64_t u = f / a.s_block;
+  if (!a.s_unit[u]) return;
+  const float* row = a.planes + f * 12;
+  const float a0 = row[0], b0 = row[1], c0 = row[2];
+  const float a1 = row[3], b1 = row[4], c1 = row[5];
+  const float a2 = row[6], b2 = row[7], c2 = row[8];
+  const float wa = row[9], wb = row[10], wc = row[11];
+  const int kind = cull_rule(a0, b0, c0, a1, b1, c1, a2, b2, c2, a.W, a.H);
+  if (kind == kCullNever) return;
+  // the unit's cell box in pixels, clipped to the image
+  int y0 = a.cells[u] * a.sh;
+  int x0 = a.cells[a.n_units + u] * a.sw;
+  int y1 = min((a.cells[2 * a.n_units + u] + 1) * a.sh, a.H) - 1;
+  int x1 = min((a.cells[3 * a.n_units + u] + 1) * a.sw, a.W) - 1;
+  if (kind == kCullBox) {
+    y0 = max(y0, a.bbox[f] - kCullMargin);
+    x0 = max(x0, a.bbox[a.F + f] - kCullMargin);
+    y1 = min(y1, a.bbox[2 * a.F + f] + kCullMargin);
+    x1 = min(x1, a.bbox[3 * a.F + f] + kCullMargin);
+  }
+  const unsigned long long low = 0xFFFFFFFFull - static_cast<unsigned>(f);
+  for (int y = y0; y <= y1; ++y) {
+    const float py = static_cast<float>(y) + 0.5f;
+    unsigned long long* key_row = a.keys + static_cast<int64_t>(y) * a.W;
+    for (int x = x0; x <= x1; ++x) {
+      const float px = static_cast<float>(x) + 0.5f;
+      const float e0 = eval_plane(a0, b0, c0, px, py);
+      const float e1 = eval_plane(a1, b1, c1, px, py);
+      const float e2 = eval_plane(a2, b2, c2, px, py);
       if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f) {
-        const float w = eval_plane(sp[9][i], sp[10][i], sp[11][i], px, py);
-        if (w > bw) {
-          bw = w;
-          bid = sid[i];
-        }
+        const float w = __fadd_rn(eval_plane(wa, wb, wc, px, py), 0.0f);
+        const unsigned long long key =
+            (static_cast<unsigned long long>(ordered_bits(w)) << 32) | low;
+        atomicMax(key_row + x, key);
       }
     }
   }
-  if (p < a.sh * a.sw && y < a.H && x < a.W) {
-    const int64_t o = static_cast<int64_t>(y) * a.W + x;
-    a.best_w[o] = bw;
-    a.best_id[o] = bid;
+}
+
+__global__ void __launch_bounds__(kThreads) s_unpack_kernel(
+    const unsigned long long* keys, float* best_w, int* best_id, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long k = keys[i];
+  if (k == 0ull) {
+    best_w[i] = -CUDART_INF_F;
+    best_id[i] = -1;
+  } else {
+    best_w[i] = from_ordered_bits(static_cast<unsigned>(k >> 32));
+    best_id[i] = static_cast<int>(0xFFFFFFFFu - static_cast<unsigned>(k));
   }
 }
 
 }  // namespace
 
-extern "C" int gg_s_raster(const void* planes, const void* units,
-                           const void* sub_ids, const void* sub_start,
-                           const void* sub_count, void* best_w, void* best_id,
-                           int n_occ, int H, int W, int sh, int sw, int nsx,
-                           int s_block, void* stream) {
-  if (sh < 1 || sw < 1 || sh * sw > kMaxThreads || s_block < 1 || nsx < 1)
+extern "C" int gg_s_raster(const void* planes, const void* bbox,
+                           const void* cells, const void* s_unit, void* keys,
+                           void* best_w, void* best_id, int64_t n_faces, int H,
+                           int W, int sh, int sw, int s_block, void* stream) {
+  if (sh < 1 || sw < 1 || s_block < 1 || n_faces % s_block != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   SRasterArgs a;
   a.planes = static_cast<const float*>(planes);
-  a.units = static_cast<const int*>(units);
-  a.sub_ids = static_cast<const int*>(sub_ids);
-  a.sub_start = static_cast<const int*>(sub_start);
-  a.sub_count = static_cast<const int*>(sub_count);
-  a.best_w = static_cast<float*>(best_w);
-  a.best_id = static_cast<int*>(best_id);
+  a.bbox = static_cast<const int*>(bbox);
+  a.cells = static_cast<const int*>(cells);
+  a.s_unit = static_cast<const unsigned char*>(s_unit);
+  a.keys = static_cast<unsigned long long*>(keys);
+  a.F = n_faces;
+  a.n_units = n_faces / s_block;
   a.H = H;
   a.W = W;
   a.sh = sh;
   a.sw = sw;
-  a.nsx = nsx;
   a.s_block = s_block;
-  if (n_occ > 0) {
-    const int threads = (sh * sw + 31) / 32 * 32;
-    s_raster_kernel<<<n_occ, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_faces > 0) {
+    const int64_t blocks = (n_faces + kThreads - 1) / kThreads;
+    s_raster_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t n = static_cast<int64_t>(H) * W;
+  if (n > 0) {
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    s_unpack_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        a.keys, static_cast<float*>(best_w), static_cast<int*>(best_id), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,13 +41,13 @@ _I64 = ctypes.c_int64
 # argtypes of every C entry point: an undeclared pointer would be cut to
 # 32 bits by ctypes
 SIGNATURES = {
-    # planes, cand0..cand3, cnt0..cnt3, s_w, s_id (null: no level-S
-    # carry), out, H, W, tile_h, tile_w, nty0, ntx0, nty1, ntx1, nty2,
-    # ntx2, s1, s2, c0, c1, c2, c3, stream
-    "gg_raster_tiles": [_P] * 12 + [_I] * 16 + [_P],
-    # planes, units, sub_ids, sub_start, sub_count, best_w, best_id,
-    # n_occ, H, W, sh, sw, nsx, s_block, stream
-    "gg_s_raster": [_P] * 7 + [_I] * 7 + [_P],
+    # planes, bbox, cand0..cand3, cnt0..cnt3, s_w, s_id (null: no level-S
+    # carry), out, n_faces, H, W, tile_h, tile_w, nty0, ntx0, nty1, ntx1,
+    # nty2, ntx2, s1, s2, c0, c1, c2, c3, stream
+    "gg_raster_tiles": [_P] * 13 + [_I64] + [_I] * 16 + [_P],
+    # planes, bbox, cells, s_unit, keys, best_w, best_id, n_faces, H, W,
+    # sh, sw, s_block, stream
+    "gg_s_raster": [_P] * 7 + [_I64] + [_I] * 5 + [_P],
     # pix2face, class_image, counts, n_pix, n_faces, n_classes, stream
     "gg_face_class_counts": [_P, _P, _P, _I64, _I64, _I, _P],
 }

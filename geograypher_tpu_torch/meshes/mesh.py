@@ -45,6 +45,7 @@ from geograypher_tpu_torch.ops.rasterize import (
 )
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils import geometric
+from geograypher_tpu_torch.utils.device import resolve_device
 from geograypher_tpu_torch.utils.meshio import load_mesh
 from geograypher_tpu_torch.utils.parsing import (
     crs_from_srs_text,
@@ -99,13 +100,7 @@ class TexturedMesh:
                 "yet (ROADMAP A6)"
             )
         del texture_column_name, ROI_buffer_meters  # only read with texture/ROI
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"TexturedMesh(device={str(device)!r}) needs a CUDA device "
-                "and torch.cuda.is_available() is False; pass device='cpu' "
-                "to run on the CPU"
-            )
+        self.device = resolve_device(device, "TexturedMesh")
         self.raster_config = raster_config
         self.IDs_to_labels = dict(IDs_to_labels) if IDs_to_labels else None
         self.vertex_texture: typing.Optional[np.ndarray] = None

@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from geograypher_tpu_torch.ops.face_counts import face_class_counts
+from geograypher_tpu_torch.utils.device import resolve_device
 
 
 def render_texture(
@@ -91,8 +92,11 @@ class AggregationState(NamedTuple):
 
 
 def init_aggregation(
-    n_faces: int, n_channels: int, device="cpu"
+    n_faces: int, n_channels: int, device="cuda"
 ) -> AggregationState:
+    """Zeroed accumulators on ``device``: the card by default (raises
+    without one); pass ``device="cpu"`` for CPU work."""
+    device = resolve_device(device, "init_aggregation")
     return AggregationState(
         value_sum=torch.zeros((n_faces, n_channels), dtype=torch.float32,
                               device=device),

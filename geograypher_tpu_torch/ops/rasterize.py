@@ -16,9 +16,9 @@ injective domain is dropped, and no capacity drop is silent (``overflow``
 counts every candidate a tile list could not hold).
 
 With ``RasterConfig.subtile`` set, :func:`bin_all` first diverts small
-face units to the level-S sub-tile lists (``ops/subtile.py``); their
-winners seed the raster kernel's per-pixel carry.  Not ported:
-occupied-pair compaction and the TPU-only tuning fields of the JAX
+face units to level S (``ops/subtile.py``, elementwise: no sort and no
+read-back); their winners seed the raster kernel's per-pixel carry.  Not
+ported: occupied-pair compaction and the TPU-only tuning fields of the JAX
 ``RasterConfig``.
 """
 
@@ -36,7 +36,7 @@ from geograypher_tpu_torch.ops.raster_tiles import (
     raster_tiles,
     tile_candidate_groups,
 )
-from geograypher_tpu_torch.ops.subtile import bin_subtiles, s_raster
+from geograypher_tpu_torch.ops.subtile import s_raster, subtile_pairs, subtile_units
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,17 +426,18 @@ def bin_triangles(
 
 def bin_all(setup: TriangleSetup, config: RasterConfig, image_h: int,
             image_w: int):
-    """Bin at every level: (BinnedTriangles, SubtileBinned or None).
+    """Bin at every level: (BinnedTriangles, SubtileUnits or None).
 
-    With ``config.subtile`` set, small units go to the level-S sub-tile
-    lists first and their blocks are excluded from the L0..L3 lists.
+    With ``config.subtile`` set, small units go to level S first
+    (``subtile_units``, elementwise) and their blocks are excluded from
+    the L0..L3 lists.
     """
     if config.subtile is None:
         return bin_triangles(setup, config, image_h, image_w), None
-    sb = bin_subtiles(setup, config, image_h, image_w)
+    su = subtile_units(setup, config)
     binned = bin_triangles(setup, config, image_h, image_w,
-                           exclude_blocks=sb.s_mask8)
-    return binned, sb
+                           exclude_blocks=su.s_mask8)
+    return binned, su
 
 
 def binned_face_lists(binned: BinnedTriangles, config: RasterConfig):
@@ -479,16 +480,16 @@ def rasterize_setup(
 
 
 def _rasterize_levels(setup, config, image_h, image_w):
-    """(pix2face, binned, sb): :func:`rasterize_setup` with its level-S
-    lists (None when level S is off)."""
-    binned, sb = bin_all(setup, config, image_h, image_w)
+    """(pix2face, binned, su): :func:`rasterize_setup` with its level-S
+    units (None when level S is off)."""
+    binned, su = bin_all(setup, config, image_h, image_w)
     cand, counts = binned_face_lists(binned, config)
-    planes = setup.planes.contiguous()
-    s_init = None if sb is None else s_raster(sb, planes, config, image_h,
+    s_init = None if su is None else s_raster(su, setup, config, image_h,
                                                image_w)
-    pix2face = raster_tiles(planes, cand, counts, config, image_h, image_w,
+    pix2face = raster_tiles(setup.planes.contiguous(), setup.bbox.contiguous(),
+                            cand, counts, config, image_h, image_w,
                             s_init=s_init)
-    return pix2face, binned, sb
+    return pix2face, binned, su
 
 
 def rasterize_and_count(
@@ -544,13 +545,13 @@ def fused_view_class_counts(
         tri_soa, world_to_cam, f, image_w, image_h, config.znear,
         distortion=(dist8, pcx, pcy) if use_dist else None,
     )
-    pix2face, binned, sb = _rasterize_levels(setup, config, image_h, image_w)
+    pix2face, binned, su = _rasterize_levels(setup, config, image_h, image_w)
     counts = face_class_counts(
         pix2face, class_image.to(torch.int32).contiguous(), n_faces, n_classes
     )
     ncand = sum(c.sum() for c in binned.counts)
-    if sb is not None:
-        ncand = ncand + sb.units.shape[0]
+    if su is not None:
+        ncand = ncand + subtile_pairs(su)
     return counts.to(torch.float32), binned.overflow, ncand
 
 

@@ -2,37 +2,42 @@
 
 Port of ``geograypher_tpu/ops/subtile.py``.  A tile-list candidate costs
 every pixel of its 8 x 128 tile; the far-field triangles of oblique drone
-views cover a few pixels each.  Level S bins SMALL units of ``s_block``
-consecutive faces to (h, w) sub-tile cells of the image (8 x 16 by
-default) and resolves each only against the cells its box touches.
+views cover a few pixels each.  Level S takes SMALL units of ``s_block``
+consecutive faces whose box fits an ``s_window`` of (h, w) sub-tile cells
+of the image (8 x 16 by default) and resolves each only over those cells.
 
-* :func:`subtile_mask8` decides which ``bin_block`` blocks leave the
-  L0..L3 tile lists: a block is diverted only when every occupied
-  ``s_block`` unit of it fits an ``s_window`` of cells (assignment is
+* :func:`subtile_units` computes, elementwise from the setup, each unit's
+  cell box, which units level S takes (``s_unit``) and the per-block
+  diversion mask ``s_mask8``: a ``bin_block`` block leaves the L0..L3
+  tile lists only when every occupied unit of it fits (assignment is
   exclusive, so no face is resolved or counted twice), and never when it
   holds an oversized-tail face (``global_from``).  It equals the JAX
-  package's mask exactly.
-* :func:`bin_subtiles` sorts the (sub-tile, unit) pairs once into a CSR
-  list over the occupied sub-tiles, at the view's exact demand: level S
-  has no capacity and can never drop a candidate.
-* :func:`s_raster` resolves the lists into image-layout (best 1/z, face)
+  package's mask exactly.  This is all the card's path needs: no sort,
+  no read-back to the host.
+* :func:`bin_subtiles` (:func:`subtile_csr` of the units) sorts the
+  (sub-tile, unit) pairs into a CSR list over the occupied sub-tiles, at
+  the view's exact demand.  The plain version and the CPU tests use it.
+* :func:`s_raster` resolves the units into image-layout (best 1/z, face)
   planes that seed the tile raster's carry (``raster_tiles(s_init=)``).
 
 The TPU layout of 128-slot chunks, 32-slot quarters and kb-aligned tile
-pairs, the bf16 hi/lo slab and the sub-tile-major output are not carried
-over: the CUDA kernel reads the CSR list directly and writes the image
-layout.
+pairs, the bf16 hi/lo slab, the sub-tile-major output and the S
+capacities are not carried over.
 
 Kernel source note.  :func:`s_raster` replaces the TPU kernel
-``geograypher_tpu/ops/subtile.py`` ``s_raster_pallas``.  It evaluates
-planes at global pixel centres with the tile raster's rounding, so
-coverage and depth are bit-identical to the path with level S off, and
-the CUDA kernel (``csrc/s_raster.cu``) is bit-equal to
-:func:`s_raster_plain`.  Its work is FP32 instructions, 16 FLOP per
-candidate-pixel, and it makes ~8x fewer candidate-pixel evaluations than
-the same faces cost in an 8 x 128 L0 tile.  Counted over each face's own
-box instead, the work a view needs is less than the bytes it must move,
-so its least time is a byte bound.
+``geograypher_tpu/ops/subtile.py`` ``s_raster_pallas``.  The CUDA kernel
+(``csrc/s_raster.cu``) is face-parallel: one thread per face of every S
+unit loops over its domain (:func:`s_face_domains`: its box widened by
+1 px, within its unit's cell box; the whole cell box for a face the cull
+rule exempts) and keeps each pixel's winner with a 64-bit ``atomicMax``
+of the packed key of :func:`s_pack_key`, whose max is exactly "larger
+1/z, then lower id", so the result does not depend on the order the
+atomics land in.  It evaluates planes at global pixel centres with the
+tile raster's rounding, so coverage and depth are bit-identical to the
+path with level S off, and it is bit-equal to :func:`s_raster_plain`.
+Its candidate-pixels are each face over its own box, ~the work the data
+needs (a few 1e7 FLOP per 4K view), so its least time is a byte bound:
+the (H, W) key buffer and the plane rows.
 """
 
 from __future__ import annotations
@@ -42,12 +47,23 @@ from typing import NamedTuple
 import torch
 
 from geograypher_tpu_torch.kernels import build
-from geograypher_tpu_torch.ops.raster_tiles import INT32_MAX
+from geograypher_tpu_torch.ops.raster_tiles import INT32_MAX, cull_boxes
 
 # kernel launches since the last reset (the main path's proof of use)
 launches = 0
 
-_MAX_SUBTILE_PIXELS = 256  # the CUDA kernel's threads, one pixel each
+
+class SubtileUnits(NamedTuple):
+    """One view's level-S units, computed elementwise from its setup (no
+    sort and no read-back to the host): what the card's S path needs.
+
+    A unit is ``s_block`` consecutive faces; cells are (h, w) sub-tiles
+    of the image's own grid (:func:`subtile_grid`).
+    """
+
+    cells: torch.Tensor  # (4, n_units) int32 rows cy0, cx0, cy1, cx1
+    s_unit: torch.Tensor  # (n_units,) bool: unit resolved at level S
+    s_mask8: torch.Tensor  # (F / bin_block,) bool: block diverted to S
 
 
 class SubtileBinned(NamedTuple):
@@ -116,43 +132,56 @@ def subtile_mask8(setup, config) -> torch.Tensor:
     return _unit_fit(setup, config)[5]
 
 
-def _pair_keys(setup, config, image_h: int, image_w: int):
-    """(keys (wy*wx*n_units,) int64, n_units, s_mask8): the sub-tile id of
-    every (window cell, unit) pair, ``INT32_MAX`` where the pair is not
-    binned."""
+def subtile_units(setup, config) -> SubtileUnits:
+    """The view's :class:`SubtileUnits`, elementwise from ``setup`` (faces
+    padded to a multiple of ``bin_block`` as for ``bin_triangles``)."""
+    cy0, cy1, cx0, cx1, _, s_mask8, s_unit = _unit_fit(setup, config)
+    cells = torch.stack([cy0, cx0, cy1, cx1]).to(torch.int32).contiguous()
+    return SubtileUnits(cells=cells, s_unit=s_unit.contiguous(), s_mask8=s_mask8)
+
+
+def subtile_pairs(su: SubtileUnits) -> torch.Tensor:
+    """() int64 number of (sub-tile, unit) pairs: every S unit's cells."""
+    cy0, cx0, cy1, cx1 = (su.cells[k].long() for k in range(4))
+    return torch.where(su.s_unit, (cy1 - cy0 + 1) * (cx1 - cx0 + 1), 0).sum()
+
+
+def _pair_keys(su: SubtileUnits, config, image_h: int, image_w: int):
+    """(wy*wx*n_units,) int64: the sub-tile id of every (window cell,
+    unit) pair, ``INT32_MAX`` where the pair is not binned."""
     wy, wx = config.s_window
-    cy0, cy1, cx0, cx1, uvalid, s_mask8, s_unit = _unit_fit(setup, config)
+    cy0, cx0, cy1, cx1 = (su.cells[k].long() for k in range(4))
     _, nsx = subtile_grid(config, image_h, image_w)
     keys = []
     for dy in range(wy):
         for dx in range(wx):
             cy, cx = cy0 + dy, cx0 + dx
-            ok = s_unit & (cy <= cy1) & (cx <= cx1)
+            ok = su.s_unit & (cy <= cy1) & (cx <= cx1)
             keys.append(torch.where(ok, cy * nsx + cx, INT32_MAX))
-    return torch.cat(keys), uvalid.shape[0], s_mask8
+    return torch.cat(keys)
 
 
 def subtile_counts_census(setup, config, image_h: int, image_w: int):
     """Exact level-S demand, (2,) int64: total (sub-tile, unit) pairs and
     the most units any one sub-tile holds."""
-    keys, _, _ = _pair_keys(setup, config, image_h, image_w)
+    keys = _pair_keys(subtile_units(setup, config), config, image_h, image_w)
     nsy, nsx = subtile_grid(config, image_h, image_w)
     keys = keys[keys != INT32_MAX]
     per_sub = torch.bincount(keys, minlength=nsy * nsx)
     return torch.stack([per_sub.sum(), per_sub.max()])
 
 
-def bin_subtiles(setup, config, image_h: int, image_w: int) -> SubtileBinned:
-    """Bin small units to sub-tile cells with one sort.
+def subtile_csr(su: SubtileUnits, config, image_h: int,
+                image_w: int) -> SubtileBinned:
+    """The units' (sub-tile, unit) pairs as CSR lists, with one sort.
 
-    ``setup`` is the view's TriangleSetup, faces padded to a multiple of
-    ``bin_block`` as for ``bin_triangles``.  Each unit whose cell box fits
-    the ``s_window`` emits one (sub-tile, unit) pair per cell of its box;
-    sorting the combined int64 key ``sub_tile * n_units + unit`` groups
-    them per sub-tile with units ascending, which the tie rule needs.
-    Sizing the lists reads two numbers back from the device.
+    Each S unit emits one pair per cell of its box; sorting the combined
+    int64 key ``sub_tile * n_units + unit`` groups them per sub-tile with
+    units ascending, which the tie rule needs.  Sizing the lists reads two
+    numbers back from the device.
     """
-    keys, n_units, s_mask8 = _pair_keys(setup, config, image_h, image_w)
+    keys = _pair_keys(su, config, image_h, image_w)
+    n_units = su.s_unit.shape[0]
     dev = keys.device
     nsy, nsx = subtile_grid(config, image_h, image_w)
     n_sub = nsy * nsx
@@ -168,8 +197,15 @@ def bin_subtiles(setup, config, image_h: int, image_w: int) -> SubtileBinned:
         sub_ids=occ.to(torch.int32),
         sub_start=starts[occ].to(torch.int32),
         sub_count=per_sub[occ].to(torch.int32),
-        s_mask8=s_mask8,
+        s_mask8=su.s_mask8,
     )
+
+
+def bin_subtiles(setup, config, image_h: int, image_w: int) -> SubtileBinned:
+    """Bin small units to sub-tile cells: :func:`subtile_csr` of
+    :func:`subtile_units`.  ``setup`` is the view's TriangleSetup, faces
+    padded to a multiple of ``bin_block`` as for ``bin_triangles``."""
+    return subtile_csr(subtile_units(setup, config), config, image_h, image_w)
 
 
 def s_raster_plain(sb: SubtileBinned, planes: torch.Tensor, config,
@@ -240,50 +276,88 @@ def s_raster_plain(sb: SubtileBinned, planes: torch.Tensor, config,
             best_id[:image_h, :image_w].contiguous())
 
 
-def s_raster(sb: SubtileBinned, planes: torch.Tensor, config, image_h: int,
-             image_w: int):
-    """Level-S z-pass: (best_w (H, W) float32, best_id (H, W) int32), the
-    tile raster's carry init; -inf / -1 where no S candidate covers.
+def s_face_domains(su: SubtileUnits, setup, config, image_h: int,
+                   image_w: int) -> torch.Tensor:
+    """(F, 4) int64 rows (y0, x0, y1, x1), inclusive: the pixels the CUDA
+    kernel evaluates for each face, its ``cull_boxes`` box within its
+    unit's cell box.  That is its box widened by ``CULL_MARGIN``, the
+    whole cell box when the cull rule exempts it, and nothing (y0 > y1)
+    when it never covers or its unit is not an S unit."""
+    sh, sw = config.subtile
+    cells = su.cells.long().repeat_interleave(config.s_block, dim=1)  # (4, F)
+    boxes = cull_boxes(setup.planes, setup.bbox, image_h, image_w)
+    lo = torch.maximum(boxes[:, :2], torch.stack([cells[0] * sh, cells[1] * sw], 1))
+    hi = torch.minimum(boxes[:, 2:], torch.stack([
+        torch.clamp((cells[2] + 1) * sh, max=image_h) - 1,
+        torch.clamp((cells[3] + 1) * sw, max=image_w) - 1], 1))
+    live = su.s_unit.repeat_interleave(config.s_block)[:, None]
+    return torch.where(live, torch.cat([lo, hi], dim=1),
+                       torch.tensor([1, 1, 0, 0], device=cells.device))
 
-    A CUDA tensor launches ``csrc/s_raster.cu`` (one thread block per
-    occupied sub-tile, one thread per pixel) or raises; only a CPU tensor
-    runs :func:`s_raster_plain`.
+
+def s_pack_key(w: torch.Tensor, face_id: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's packed (1/z, id) key as int64, for any shape.
+
+    The kernel's unsigned key is ``ordered_bits(w + 0.0) << 32 |
+    (0xFFFFFFFF - id)``, where ``ordered_bits`` maps a float32's bits to
+    an unsigned int in the float order; this is the same key minus 2^63,
+    so that its order as a signed int64 is the kernel's unsigned order.
+    Its max is "larger w, then lower id", -0.0 and +0.0 equal.
+    """
+    u = (w + 0.0).to(torch.float32).view(torch.int32).long() & 0xFFFFFFFF
+    ordered = torch.where(u >= 2**31, 0xFFFFFFFF - u, u + 2**31)
+    return (ordered - 2**31) * 2**32 + (0xFFFFFFFF - face_id.long())
+
+
+def s_raster(su: SubtileUnits, setup, config, image_h: int, image_w: int):
+    """Level-S z-pass: (best_w (H, W) float32, best_id (H, W) int32), the
+    tile raster's carry init; -inf / -1 where no S face covers.
+
+    ``su`` comes from :func:`subtile_units` and ``setup`` is the view's
+    TriangleSetup (its ``planes`` and ``bbox``).  A CUDA tensor launches
+    ``csrc/s_raster.cu`` (one thread per face of every S unit, a 64-bit
+    atomic max per covered pixel, then an unpack) or raises; only a CPU
+    tensor runs :func:`s_raster_plain`, over the CSR lists of
+    :func:`subtile_csr`.
     """
     global launches
+    planes, bbox = setup.planes, setup.bbox
     if planes.dtype != torch.float32 or planes.ndim != 2 or planes.shape[1] != 12:
         raise ValueError(f"planes must be float32 (F, 12), got "
                          f"{planes.dtype} {tuple(planes.shape)}")
-    if not planes.is_contiguous():
-        raise ValueError("planes must be contiguous")
-    for name in ("units", "sub_ids", "sub_start", "sub_count"):
-        t = getattr(sb, name)
-        if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
-            raise ValueError(f"sb.{name} must be contiguous int32 (n,), got "
+    n_faces = planes.shape[0]
+    n_units = su.s_unit.shape[0]
+    if n_units * config.s_block != n_faces:
+        raise ValueError(f"{n_units} units of {config.s_block} faces do not "
+                         f"cover {n_faces} faces")
+    for name, t, dtype, shape in (
+        ("setup.bbox", bbox, torch.int32, (4, n_faces)),
+        ("su.cells", su.cells, torch.int32, (4, n_units)),
+        ("su.s_unit", su.s_unit, torch.bool, (n_units,)),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != planes.device:
-            raise ValueError(f"sb.{name} is on {t.device}, planes on "
-                             f"{planes.device}")
+            raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
     if planes.device.type == "cpu":
-        return s_raster_plain(sb, planes, config, image_h, image_w)
+        return s_raster_plain(subtile_csr(su, config, image_h, image_w),
+                              planes.contiguous(), config, image_h, image_w)
     if planes.device.type != "cuda":
         raise ValueError(f"s_raster: unsupported device {planes.device}")
+    planes, bbox = planes.contiguous(), bbox.contiguous()
+    cells, s_unit = su.cells.contiguous(), su.s_unit.contiguous()
     sh, sw = config.subtile
-    if sh * sw > _MAX_SUBTILE_PIXELS:
-        raise ValueError(f"s_raster: CUDA kernel takes sub-tiles of at most "
-                         f"{_MAX_SUBTILE_PIXELS} pixels, got {sh}x{sw}")
-    _, nsx = subtile_grid(config, image_h, image_w)
-    best_w = torch.full((image_h, image_w), float("-inf"), dtype=torch.float32,
-                        device=planes.device)
-    best_id = torch.full((image_h, image_w), -1, dtype=torch.int32,
+    keys = torch.zeros((image_h, image_w), dtype=torch.int64, device=planes.device)
+    best_w = torch.empty((image_h, image_w), dtype=torch.float32,
                          device=planes.device)
-    if sb.sub_ids.shape[0] == 0:  # no S candidate: nothing to launch
-        return best_w, best_id
+    best_id = torch.empty((image_h, image_w), dtype=torch.int32,
+                          device=planes.device)
     lib = build.load()
     err = lib.gg_s_raster(
-        planes.data_ptr(), sb.units.data_ptr(), sb.sub_ids.data_ptr(),
-        sb.sub_start.data_ptr(), sb.sub_count.data_ptr(),
-        best_w.data_ptr(), best_id.data_ptr(),
-        sb.sub_ids.shape[0], image_h, image_w, sh, sw, nsx, config.s_block,
+        planes.data_ptr(), bbox.data_ptr(), cells.data_ptr(), s_unit.data_ptr(),
+        keys.data_ptr(), best_w.data_ptr(), best_id.data_ptr(),
+        n_faces, image_h, image_w, sh, sw, config.s_block,
         build.stream_ptr(planes.device),
     )
     build.check(err, "gg_s_raster")

@@ -2,7 +2,8 @@
 
 Port of the grid mesh, the camera poses and the brute-force oracle of
 ``geograypher_tpu/utils/fixtures.py``; the tests hold each equal to the
-JAX package's.
+JAX package's.  :func:`knife_edge_triangles` is the port's own: the
+adversarial scene its raster kernels are held to their plain versions on.
 """
 
 from __future__ import annotations
@@ -141,3 +142,105 @@ def brute_force_pix2face(
         best_w[upd] = wpix[upd]
         best_face[upd] = fid
     return best_face
+
+
+def knife_edge_triangles(
+    image_w: int,
+    image_h: int,
+    seed: int = 0,
+    n_patches: int = 6,
+    patch_cells: int = 40,
+    n_small: int = 4000,
+    n_slivers: int = 1500,
+    n_long: int = 40,
+    max_sliver: int = 1500,
+) -> np.ndarray:
+    """(F, 3, 3) float32 camera-frame triangles for focal length 1 whose
+    rounding is adversarial for a rasterizer at ``image_w x image_h``.
+
+    Every vertex sits at a depth that is a power of two, so its projection
+    is exact: pixel-space positions are what this function places.
+
+    * ``n_patches`` grids of ``patch_cells`` x ``patch_cells`` cells of 1
+      to 8 px, vertices exactly on pixel centres (every other patch within
+      1e-4 px of them), each cell split on a diagonal through pixel
+      centres; axis-aligned edges run through pixel centres.  Half the
+      patches are flat (exact 1/z ties where they overlap), half tilted.
+    * ``n_small`` triangles of 1-12 px with vertices on pixel centres.
+    * ``n_slivers`` slivers along rows and columns through pixel centres,
+      up to ``max_sliver`` px long, the third vertex 1e-5 to 0.3 px off
+      the line: sharp vertices, where rounding moves coverage furthest.
+    * ``n_long`` faces with one vertex 2^18-2^19 px off the image and two
+      on pixel centres inside it: edges longer than 2^18 px, still valid.
+
+    F is padded to a multiple of 8 with degenerate (invalid) faces.
+    """
+    rng = np.random.default_rng(seed)
+    tris, depth = [], []  # pixel-space (x, y) per vertex, and its z
+
+    def centre(lo, hi, size):
+        return rng.integers(lo, hi, size) + 0.5
+
+    for p in range(n_patches):
+        cell = int(rng.integers(1, 9))
+        n = patch_cells
+        x0 = centre(0, max(1, image_w - n * cell), 1)[0]
+        y0 = centre(0, max(1, image_h - n * cell), 1)[0]
+        gx, gy = np.meshgrid(np.arange(n + 1) * cell + x0, np.arange(n + 1) * cell + y0)
+        if p % 2:
+            jitter = rng.choice([-1e-4, 0.0, 1e-4], (2,) + gx.shape)
+            gx, gy = gx + jitter[0], gy + jitter[1]
+        z = (np.full(gx.shape, 1.0) if p % 4 < 2
+             else np.where((np.indices(gx.shape).sum(0) % 2) == 0, 1.0, 2.0))
+        i, j = (k.ravel() for k in np.meshgrid(np.arange(n), np.arange(n),
+                                                indexing="ij"))
+        a, b, c, d = (i * (n + 1) + j, i * (n + 1) + j + 1,
+                      (i + 1) * (n + 1) + j, (i + 1) * (n + 1) + j + 1)
+        flip = (i + j) % 2 == 1  # alternate the diagonal cell by cell
+        faces = np.concatenate([
+            np.stack([a, b, np.where(flip, c, d)], 1),
+            np.stack([np.where(flip, b, a), d, c], 1),
+        ])
+        xy = np.stack([gx.ravel(), gy.ravel()], -1)
+        tris.append(xy[faces])
+        depth.append(z.ravel()[faces])
+
+    base = np.stack([centre(20, image_w - 20, n_small),
+                     centre(20, image_h - 20, n_small)], -1)
+    offs = rng.integers(-12, 13, (n_small, 2, 2)).astype(np.float64)
+    tris.append(np.stack([base, base + offs[:, 0], base + offs[:, 1]], 1))
+    depth.append(rng.choice([0.5, 1.0, 2.0, 4.0], (n_small, 3)))
+
+    length = rng.integers(20, max_sliver, n_slivers).astype(np.float64)
+    a = np.stack([centre(0, image_w, n_slivers), centre(0, image_h, n_slivers)], -1)
+    along = np.where(rng.random(n_slivers) < 0.7, 0, 1)  # 0: a row, 1: a column
+    step = np.zeros((n_slivers, 2))
+    step[np.arange(n_slivers), along] = length
+    b = a + step
+    b[np.arange(n_slivers), 1 - along] += rng.choice([0.0, 1e-4, -1e-4], n_slivers)
+    c = a + step * rng.uniform(0.05, 0.95, (n_slivers, 1))
+    c[np.arange(n_slivers), along] += rng.choice([0.0, 0.5, 1e-4], n_slivers)
+    c[np.arange(n_slivers), 1 - along] += (
+        10.0 ** rng.uniform(-5, -0.5, n_slivers) * rng.choice([-1, 1], n_slivers))
+    tris.append(np.stack([a, b, c], 1))
+    depth.append(rng.choice([1.0, 2.0], (n_slivers, 3)))
+
+    m = min(100, image_w // 4, image_h // 4)
+    inner = np.stack([centre(m, image_w - m, (n_long, 2)),
+                      centre(m, image_h - m, (n_long, 2))], -1)
+    far = inner[:, 0].copy()
+    far[:, 0] += rng.choice([-1, 1], n_long) * rng.uniform(2**18, 2**19, n_long)
+    far[:, 1] += rng.uniform(-50, 50, n_long)
+    tris.append(np.stack([far, inner[:, 0], inner[:, 1]], 1))
+    depth.append(np.ones((n_long, 3)))
+
+    px = np.concatenate(tris)
+    z = np.concatenate(depth)
+    pad = -len(px) % 8
+    px = np.concatenate([px, np.full((pad, 3, 2), 0.5 + image_w / 2.0)])
+    z = np.concatenate([z, np.ones((pad, 3))])
+    cam = np.empty(px.shape[:2] + (3,))
+    cam[..., 0] = (px[..., 0] - image_w / 2.0) * z
+    cam[..., 1] = (px[..., 1] - image_h / 2.0) * z
+    cam[..., 2] = z
+    return cam.astype(np.float32)

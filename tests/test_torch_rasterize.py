@@ -261,8 +261,12 @@ def test_raster_tiles_checks_inputs():
     from geograypher_tpu_torch.ops.raster_tiles import raster_tiles
 
     with pytest.raises(ValueError, match="planes"):
-        raster_tiles(ts.planes.double(), cand, counts, cfg, h, w)
+        raster_tiles(ts.planes.double(), ts.bbox, cand, counts, cfg, h, w)
+    with pytest.raises(ValueError, match="bbox"):
+        raster_tiles(ts.planes, ts.bbox[:, :-1], cand, counts, cfg, h, w)
     with pytest.raises(ValueError, match="cand"):
-        raster_tiles(ts.planes, (cand[0].long(),) + cand[1:], counts, cfg, h, w)
+        raster_tiles(ts.planes, ts.bbox, (cand[0].long(),) + cand[1:], counts,
+                     cfg, h, w)
     with pytest.raises(ValueError, match="counts"):
-        raster_tiles(ts.planes, cand, counts[:3] + (counts[3][:0],), cfg, h, w)
+        raster_tiles(ts.planes, ts.bbox, cand, counts[:3] + (counts[3][:0],),
+                     cfg, h, w)

@@ -203,7 +203,7 @@ def test_camera_batch_matches_jax(survey):
     cams = interop.cameras_from_jax(jcams)
     for scale in (1.0, 0.5):
         ref = jcams.get_camera_batch([3, 1], image_scale=scale)
-        got = cams.get_camera_batch([3, 1], image_scale=scale)
+        got = cams.get_camera_batch([3, 1], image_scale=scale, device="cpu")
         assert (got.image_width, got.image_height) == (ref.image_width,
                                                        ref.image_height)
         for name in ("cam_to_world", "world_to_cam", "f", "cx", "cy", "distortion"):
@@ -221,7 +221,8 @@ def test_aggregation_ops_match_jax():
 
     rng = np.random.default_rng(2)
     n_faces, c = 40, 3
-    jstate, tstate = ja.init_aggregation(n_faces, c), ta.init_aggregation(n_faces, c)
+    jstate = ja.init_aggregation(n_faces, c)
+    tstate = ta.init_aggregation(n_faces, c, device="cpu")
     for _ in range(3):
         counts = rng.integers(0, 3, (n_faces, c)).astype(np.float32)
         sums = (counts * rng.random((n_faces, c))).astype(np.float32)

@@ -97,10 +97,10 @@ def test_excluded_tile_lists_match_jax(scene, census):
     mask = js.subtile_mask8(jsetup, JCFG)
     jb = jr.bin_triangles(jsetup, JCFG, h, w, exclude_blocks=mask,
                           return_census=census)
-    binned, sb = tr.bin_all(tsetup, TCFG, h, w)
+    binned, su = tr.bin_all(tsetup, TCFG, h, w)
     if census:
         got = tr.bin_triangles(tsetup, TCFG, h, w, return_census=True,
-                               exclude_blocks=sb.s_mask8)
+                               exclude_blocks=su.s_mask8)
         np.testing.assert_array_equal(got.numpy(), np.asarray(jb))
         full = tr.bin_triangles(tsetup, TCFG, h, w, return_census=True)
         assert int(got.sum()) < int(full.sum())  # level S took units away
@@ -122,7 +122,7 @@ def test_s_raster_plain_matches_jax_kernel(scene):
     bid = np.asarray(bid)
     want = bid.reshape(bid.shape[0] * bid.shape[1], -1)[:h, :w]
     sb = ts.bin_subtiles(tsetup, TCFG, h, w)
-    best_w, best_id = ts.s_raster(sb, tsetup.planes.contiguous(), TCFG, h, w)
+    best_w, best_id = ts.s_raster(ts.subtile_units(tsetup, TCFG), tsetup, TCFG, h, w)
     assert best_w.dtype == torch.float32 and best_id.dtype == torch.int32
     got = best_id.numpy()
     assert (got >= 0).sum() > 1000
@@ -224,10 +224,10 @@ def test_s_seeded_raster_matches_float64_oracle():
         tri_cam[:1].mean(1, keepdims=True), (pad, 3, 3))]).astype(np.float32)
     w, h = 256, 96
     setup = tr.setup_triangles(torch.as_tensor(tri32), torch.tensor(90.0), w, h)
-    binned, sb = tr.bin_all(setup, TCFG, h, w)
+    binned, su = tr.bin_all(setup, TCFG, h, w)
     cand, counts = tr.binned_face_lists(binned, TCFG)
     planes = setup.planes.contiguous()
-    s_init = ts.s_raster(sb, planes, TCFG, h, w)
+    s_init = ts.s_raster(su, setup, TCFG, h, w)
     got = raster_tiles_plain(planes, cand, counts, TCFG, h, w, s_init=s_init).numpy()
     want = brute_force_pix2face(tri_cam, 90.0, w, h)
     agree = got == want

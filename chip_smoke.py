@@ -17,13 +17,20 @@ Phases (each prints one line; any failure raises and exits nonzero):
    knife-edge probe (``knife_edge_triangles``: vertices on and within
    1e-4 px of pixel centres, axis-aligned edges, slivers, edges longer
    than 2^18 px) through both rasters at the main and the level-S
-   configurations;
+   configurations; the counts kernel is timed on two label fields, one
+   drawn independently per pixel and one constant over 64 x 64 pixel
+   patches (what a segmentation looks like); then the one-hot scan
+   kernel against its plain version and the numpy scan on view 0's
+   one-hot image (float32, float64, with unlabeled rows) and on three
+   images it must refuse, which ``project_images`` must send down the
+   per-channel means path;
 3. the main path: ``TexturedMesh.aggregate_projected_images`` over 8 4K
    views (6 pinhole, 2 Brown-Conrady) of seeded one-hot labels, with
-   every kernel's launch count, then view 0 re-run through the plain
-   versions (bit for bit) and a small scene held against the numpy
-   brute-force oracle; then each stage of one view's device chain timed
-   alone (breakdown);
+   every kernel's launch count, the aggregate held equal to one built
+   from the numpy scan's class images of the same views, then view 0
+   re-run through the plain versions (bit for bit) and a small scene
+   held against the numpy brute-force oracle; then each stage of one
+   view's device chain timed alone (breakdown);
 4. level S: the sub-tile raster configuration (``bin_block=8``,
    ``subtile=(8, 16)``) -- its three kernels against their plain versions
    on the nadir and oblique 4K views, bit for bit; the S path of
@@ -40,13 +47,21 @@ least time the card could take for the same work (``bound_ms``) and,
 where one PyTorch call computes the same function, that call's time.
 Without a CUDA device it exits nonzero before printing any result.  It
 imports nothing of JAX or of the JAX package.
+
+``--parent DIR`` names a checkout of another commit of this repository
+(for instance ``git archive`` of the parent, unpacked under ``build/``):
+the counts kernel of that tree and of this one are then timed on the same
+saved inputs in turns parent, change, change, parent, each turn a process
+of its own started in its tree.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -58,9 +73,15 @@ import torch
 from geograypher_tpu_torch.cameras.core import CameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.kernels import build
-from geograypher_tpu_torch.meshes.mesh import TexturedMesh
-from geograypher_tpu_torch.ops import face_counts, raster_tiles, subtile
+from geograypher_tpu_torch.meshes.mesh import TexturedMesh, _PinnedUpload
+from geograypher_tpu_torch.ops import face_counts, onehot, raster_tiles, subtile
 from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
+from geograypher_tpu_torch.ops.aggregate import (
+    accumulate_view,
+    finalize_aggregation,
+    init_aggregation,
+    project_image_to_faces,
+)
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
     bin_all,
@@ -86,6 +107,7 @@ H, W = 2160, 3840
 CAP_MARGIN = 1.25  # caps = ceil(census max x margin) + 8 slots
 ORACLE_MIN_AGREE = 0.99  # f32 kernel vs the float64 oracle: knife-edge pixels
 S_MIN_AGREE = 0.9999  # level S on vs off: only exact cross-group 1/z ties differ
+LABEL_PATCH = 64  # side of the constant-class squares of the piecewise field
 # the least time of a kernel's work on one H100 SXM (NVIDIA's data
 # sheet): FP32 outside the tensor cores, HBM rate
 FP32_FLOP_S = 67e12
@@ -102,6 +124,24 @@ TPU_KERNELS = {
     "B5": "geograypher_tpu/ops/subtile.py:352",
     "B6": "geograypher_tpu/ops/subtile.py:570",
 }
+
+
+# the host scan the one-hot kernel took over (both packages ran it in numpy)
+ONEHOT_REPLACES = ("none: host numpy `_as_class_image`, "
+                   "geograypher_tpu/meshes/mesh.py:1015")
+
+
+class ImageSegmentor:
+    """Prepared (H, W, C) images by camera index."""
+
+    needs_image = False
+
+    def __init__(self, images):
+        self.images = images
+
+    def segment_image(self, image, filename=None, image_scale: float = 1.0,
+                      index=None, **kwargs):
+        return self.images[index]
 
 
 class LabelSegmentor:
@@ -264,7 +304,55 @@ def _counts_library_ms(p2f, cls, n_faces):
     """One ``torch.bincount`` over the flat (face, class) key, background
     shifted into the first C bins; the port never calls it."""
     key = ((p2f.long() + 1) * N_CLASSES + cls.long()).reshape(-1)
-    return _cuda_ms(lambda: torch.bincount(key, minlength=(n_faces + 1) * N_CLASSES))
+    return _cuda_ms(lambda: torch.bincount(key, minlength=(n_faces + 1) * N_CLASSES),
+                    runs=20)
+
+
+def _patch_adds(p2f, cls, n_faces):
+    """(labelled mesh pixels, atomic adds the counts kernel issues): one
+    add per distinct (face, class) key of each 8 x 4 pixel patch."""
+    key = torch.where((p2f >= 0) & (p2f < n_faces) & (cls >= 0) & (cls < N_CLASSES),
+                      p2f.long() * N_CLASSES + cls.long(), -1)
+    key = torch.nn.functional.pad(
+        key, (0, -key.shape[1] % 8, 0, -key.shape[0] % 4), value=-1)
+    rows = key.reshape(key.shape[0] // 4, 4, key.shape[1] // 8, 8)
+    rows = rows.permute(0, 2, 1, 3).reshape(-1, 32).sort(dim=1).values
+    first = (rows[:, 1:] != rows[:, :-1]) & (rows[:, 1:] >= 0)
+    return int((key >= 0).sum()), int(first.sum() + (rows[:, 0] >= 0).sum())
+
+
+def _device_ms(fn, runs=10):
+    """Device milliseconds of all kernels of one ``fn()`` call (profiler;
+    None when the trace holds no device time)."""
+    _, kernels = _profile(fn, runs)
+    return sum(kernels.values()) if kernels else None
+
+
+def _counts_vs_plain(name, p2f, cls, n_faces, prefix="counts_", device_time=False):
+    """The counts kernel against its plain version on one label field,
+    bit for bit: the times of the wrapper call, the plain version and the
+    library call (medians of 20), the adds the field leaves and, when
+    asked, the device time of the wrapper's kernels (zero fill and counts
+    kernel)."""
+    cnt = face_counts.face_class_counts(p2f, cls, n_faces, N_CLASSES)
+    cnt_plain = face_counts.face_class_counts_plain(p2f, cls, n_faces, N_CLASSES)
+    if not torch.equal(cnt, cnt_plain):
+        raise RuntimeError(f"counts kernel vs plain on {name} ({prefix}): max |diff| "
+                           f"{int((cnt - cnt_plain).abs().max())}")
+    pixels, adds = _patch_adds(p2f, cls, n_faces)
+    row = {
+        prefix + "max_abs_err": int((cnt - cnt_plain).abs().max()),
+        prefix + "ms": _cuda_ms(lambda: face_counts.face_class_counts(
+            p2f, cls, n_faces, N_CLASSES), runs=20),
+        prefix + "plain_ms": _cuda_ms(lambda: face_counts.face_class_counts_plain(
+            p2f, cls, n_faces, N_CLASSES)),
+        prefix + "library_ms": _counts_library_ms(p2f, cls, n_faces),
+        prefix + "pixels": pixels, prefix + "adds": adds,
+    }
+    if device_time:
+        row[prefix + "device_ms"] = _device_ms(
+            lambda: face_counts.face_class_counts(p2f, cls, n_faces, N_CLASSES))
+    return row
 
 
 def _knife_edge(a, b):
@@ -310,9 +398,10 @@ def _census_caps(setups, cfg):
     return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
 
 
-def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
+def _kernel_vs_plain(name, setup, cfg, n_faces, cls, cls_piecewise=None):
     """Both kernels against their plain versions on one view, bit for
-    bit, and the median times of all four."""
+    bit, and the median times of all four; the counts kernel also on the
+    piecewise-constant label field when one is given."""
     binned = bin_triangles(setup, cfg, H, W)
     if int(binned.overflow):
         raise RuntimeError(f"{name}: caps {cfg.caps} overflow ({int(binned.overflow)})")
@@ -327,13 +416,10 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
             f"raster kernel vs plain on {name}: {int((p2f != p2f_plain).sum())} "
             f"pixels differ (agreement {agree:.6f}, {bg} face-vs-background)"
         )
-    cnt = face_counts.face_class_counts(p2f, cls, n_faces, N_CLASSES)
-    cnt_plain = face_counts.face_class_counts_plain(p2f, cls, n_faces, N_CLASSES)
-    if not torch.equal(cnt, cnt_plain):
-        raise RuntimeError(
-            f"counts kernel vs plain on {name}: max |diff| "
-            f"{int((cnt - cnt_plain).abs().max())}"
-        )
+    counts_row = _counts_vs_plain(name, p2f, cls, n_faces, device_time=True)
+    if cls_piecewise is not None:
+        counts_row.update(_counts_vs_plain(name, p2f, cls_piecewise, n_faces,
+                                           "counts_piecewise_", device_time=True))
     (raster_bound_ms, raster_bound_by), need_pixels, cand_pixels, tile_pixels = (
         _raster_bound(setup, planes, cand, counts, cfg))
     counts_bound_ms, counts_bound_by = _counts_bound(n_faces)
@@ -344,16 +430,11 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls):
         coverage=round((p2f >= 0).float().mean().item(), 6),
         list_entries=[int(c.sum()) for c in counts],
         raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
-        counts_max_abs_err=int((cnt - cnt_plain).abs().max()),
         raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
             planes, bbox, cand, counts, cfg, H, W)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
             planes, cand, counts, cfg, H, W)),
-        counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
-            p2f, cls, n_faces, N_CLASSES)),
-        counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
-            p2f, cls, n_faces, N_CLASSES)),
-        counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
+        **counts_row,
         raster_cand_pixels=cand_pixels, raster_tile_cand_pixels=tile_pixels,
         raster_need_pixels=need_pixels,
         raster_bound_ms=raster_bound_ms, raster_bound_by=raster_bound_by,
@@ -392,11 +473,7 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
         raise RuntimeError(
             f"S-seeded raster vs plain on {name}: {int((p2f != p2f_plain).sum())} "
             f"pixels differ (agreement {agree:.6f}, {bg} face-vs-background)")
-    cnt = face_counts.face_class_counts(p2f, cls, n_faces, N_CLASSES)
-    cnt_plain = face_counts.face_class_counts_plain(p2f, cls, n_faces, N_CLASSES)
-    if not torch.equal(cnt, cnt_plain):
-        raise RuntimeError(f"counts kernel vs plain on {name} (level S): max |diff| "
-                           f"{int((cnt - cnt_plain).abs().max())}")
+    counts_row = _counts_vs_plain(name + " (level S)", p2f, cls, n_faces)
     (r_bound_ms, r_bound_by), r_need_pixels, r_cand_pixels, r_tile_pixels = (
         _raster_bound(setup, planes, cand, counts, cfg, s_init, su.s_mask8))
     row = dict(
@@ -409,7 +486,6 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
         s_raster_max_abs_err=max(int((s_id - s_id_p).abs().max()),
                                  int((s_w != s_w_p).sum())),
         raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
-        counts_max_abs_err=int((cnt - cnt_plain).abs().max()),
         s_raster_ms=_cuda_ms(lambda: subtile.s_raster(su, setup, cfg, H, W)),
         s_raster_plain_ms=_cuda_ms(
             lambda: subtile.s_raster_plain(sb, planes, cfg, H, W)),
@@ -417,11 +493,7 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
             planes, bbox, cand, counts, cfg, H, W, s_init=s_init)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
             planes, cand, counts, cfg, H, W, s_init=s_init)),
-        counts_ms=_cuda_ms(lambda: face_counts.face_class_counts(
-            p2f, cls, n_faces, N_CLASSES)),
-        counts_plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
-            p2f, cls, n_faces, N_CLASSES)),
-        counts_library_ms=_counts_library_ms(p2f, cls, n_faces),
+        **counts_row,
         s_cand_pixels=s_cand_pixels, s_subtile_cand_pixels=s_sub_pixels,
         raster_cand_pixels=r_cand_pixels, raster_tile_cand_pixels=r_tile_pixels,
         s_need_pixels=s_need_pixels, raster_need_pixels=r_need_pixels,
@@ -459,6 +531,167 @@ def _knife_edge_probe(cls, dev):
           raster_equal=True, s_raster_equal=True, s_carry_equal=True)
 
 
+def _piecewise_labels(rng, h, w):
+    """(h, w) int32 classes, constant over LABEL_PATCH-pixel squares."""
+    squares = rng.integers(0, N_CLASSES, (-(-h // LABEL_PATCH), -(-w // LABEL_PATCH)),
+                           dtype=np.int32)
+    return np.ascontiguousarray(
+        np.kron(squares, np.ones((LABEL_PATCH, LABEL_PATCH), np.int32))[:h, :w])
+
+
+def _onehot_probe_images(onehot32):
+    """(name, image, is an exact one-hot stack) probes made from one
+    float32 one-hot image: itself, in float64, with a block of unlabeled
+    (all-NaN) rows, and three that the scan must refuse."""
+    h, w, c = onehot32.shape
+    yield "float32", onehot32, True
+    yield "float64", onehot32.astype(np.float64), True
+    nan_rows = onehot32.copy()
+    nan_rows[h // 20: h // 20 + max(1, h // 10)] = np.nan
+    yield "nan_rows", nan_rows, True
+    for name, row in (("soft_value", [0.0, 0.5] + [0.0] * (c - 2)),
+                      ("two_ones", [1.0, 1.0] + [0.0] * (c - 2)),
+                      ("nan_beside_zeros", [np.nan] + [0.0] * (c - 1))):
+        bad = onehot32.copy()
+        bad[h // 2, w // 2] = row
+        yield name, bad, False
+
+
+def _check_onehot(name, image, accept, dev):
+    """The one-hot scan on ``dev`` against its plain version (class image
+    bit for bit, the same violations) and against the numpy scan; returns
+    the image on ``dev`` and the largest difference to the plain version."""
+    img = torch.as_tensor(image).to(dev)
+    cls, violations = onehot.onehot_to_class(img)
+    cls_plain, violations_plain = onehot.onehot_to_class_plain(img)
+    if not torch.equal(cls, cls_plain) or int(violations) != int(violations_plain):
+        raise RuntimeError(
+            f"one-hot kernel vs plain on {name}: {int((cls != cls_plain).sum())} "
+            f"pixels differ, violations {int(violations)} vs {int(violations_plain)}")
+    reference = TexturedMesh._as_class_image(image)
+    if (int(violations) == 0) != accept or (reference is not None) != accept:
+        raise RuntimeError(f"one-hot scan of {name}: violations {int(violations)}, "
+                           f"numpy {'accepts' if reference is not None else 'refuses'}")
+    if accept and not np.array_equal(cls.cpu().numpy(), reference):
+        raise RuntimeError(f"one-hot scan of {name} differs from the numpy scan")
+    return img, int((cls - cls_plain).abs().max())
+
+
+def _check_refused_takes_means(name, mesh, cams, image):
+    """``project_images`` on view 0 serving a refused image: one scan, no
+    counts-kernel launch, and the per-channel means of the pinhole
+    pix2face (sums of halves and ones: exact in float32)."""
+    one = SegmentorCameraSet(cams.get_subset_cameras([0]), ImageSegmentor([image]))
+    scans, counted = onehot.launches, face_counts.launches
+    (sums, counts), = list(mesh.project_images(one))
+    on_card = mesh.device.type == "cuda"
+    if (onehot.launches - scans, face_counts.launches - counted) != (int(on_card), 0):
+        raise RuntimeError(f"refused image {name}: {onehot.launches - scans} scans, "
+                           f"{face_counts.launches - counted} counts launches")
+    p2f, _ = mesh._rasterize_view(cams, 0, 1.0, None, mesh.raster_config)
+    want_sums, want_counts = project_image_to_faces(
+        p2f, torch.as_tensor(image).to(mesh.device), mesh.n_faces)
+    if not (torch.equal(sums, want_sums) and torch.equal(counts, want_counts)):
+        raise RuntimeError(f"refused image {name}: not the means path's output")
+
+
+def _onehot_probes(mesh, cams, onehot32, dev):
+    """Phase 2's one-hot probes at 4K; returns the kernel's row."""
+    row = {"max_abs_err": 0}
+    for name, image, accept in _onehot_probe_images(onehot32):
+        img, err = _check_onehot(name, image, accept, dev)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if name in ("float32", "float64"):
+            n_bytes = img.numel() * img.element_size() + img.shape[0] * img.shape[1] * 4
+            row[name] = dict(
+                ms=_cuda_ms(lambda: onehot.onehot_to_class(img)),
+                plain_ms=_cuda_ms(lambda: onehot.onehot_to_class_plain(img)),
+                bound_ms=_bound(n_bytes, 0)[0])
+        del img
+        if not accept:
+            _check_refused_takes_means(name, mesh, cams, image)
+    _line("2o", shape=list(onehot32.shape), kernel_equals_plain=True,
+          accepted_equal_numpy=True, refused_take_means_path=True, **row)
+    return row
+
+
+def _label_stage_times(seg_cams, dev):
+    """View 0's label stage, each step alone: the segmentor and the numpy
+    scan on the host (the scan that the one-hot kernel took over), then the
+    upload as ``project_images`` does it and the one-hot kernel."""
+    t0 = time.perf_counter()
+    img = seg_cams.get_image_by_index(0)
+    t1 = time.perf_counter()
+    TexturedMesh._as_class_image(img)
+    t2 = time.perf_counter()
+    upload = _PinnedUpload(dev)
+    img_dev = upload(img)
+    return dict(host_segment_s=round(t1 - t0, 4), host_class_image_s=round(t2 - t1, 4),
+                h2d_onehot_ms=_cuda_ms(lambda: upload(img)),
+                onehot_class_ms=_cuda_ms(lambda: onehot.onehot_to_class(img_dev)))
+
+
+# one turn of the counts kernels' comparison: run with a tree's root as
+# the working directory, it times that tree's wrapper on the saved inputs
+AB_TURN = r"""
+import json, os, statistics, sys
+import torch
+from geograypher_tpu_torch.ops import face_counts
+here = os.path.realpath(os.getcwd()) + os.sep
+assert os.path.realpath(face_counts.__file__).startswith(here), face_counts.__file__
+data = torch.load(sys.argv[1])
+p2f, n_faces, n_classes = data["p2f"].cuda(), data["n_faces"], data["n_classes"]
+out = {}
+for field in ("iid", "piecewise"):
+    cls = data[field].cuda()
+    call = lambda: face_counts.face_class_counts(p2f, cls, n_faces, n_classes)
+    assert torch.equal(call(), face_counts.face_class_counts_plain(
+        p2f, cls, n_faces, n_classes))
+    times = []
+    for _ in range(50):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    out[field] = statistics.median(times)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    out[field + "_device"] = sum(
+        ev.self_device_time_total for ev in prof.key_averages()
+        if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e4 or None
+print(json.dumps(out))
+"""
+
+
+def _ab_counts(parent_dir, p2f, cls, cls_piecewise, n_faces):
+    """The counts wrapper of the tree at ``parent_dir`` and of this one on
+    the same pix2face and label fields, in turns parent, change, change,
+    parent; every turn is its own process (per field the median of 50
+    timed calls, and the device time of a call's kernels)."""
+    path = build.BUILD_DIR / "ab_counts_inputs.pt"
+    torch.save({"p2f": p2f.cpu(), "iid": cls.cpu(), "piecewise": cls_piecewise.cpu(),
+                "n_faces": n_faces, "n_classes": N_CLASSES}, path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    result = {"parent": [], "change": []}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for who in ("parent", "change", "change", "parent"):
+        out = subprocess.run(
+            [sys.executable, "-c", AB_TURN, str(path)], text=True, env=env,
+            cwd=parent_dir if who == "parent" else here, capture_output=True)
+        if out.returncode:
+            raise RuntimeError(f"counts comparison, {who} turn:\n{out.stderr}")
+        result[who].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    path.unlink()
+    _line("ab_counts", order="parent, change, change, parent", **result)
+    return result
+
+
 def _probe_setup(soa, c2w, f, cfg):
     w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
                           device=soa.device)
@@ -467,6 +700,11 @@ def _probe_setup(soa, c2w, f, cfg):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--parent", metavar="DIR", default=None,
+                        help="a checkout of another commit: its counts kernel is "
+                             "timed in turns with this tree's")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -546,7 +784,16 @@ def main():
     rng = np.random.default_rng(0)
     cls = torch.as_tensor(rng.integers(0, N_CLASSES, (H, W), dtype=np.int32),
                           device=dev)
-    rows = [_kernel_vs_plain(name, s, cfg, n_faces, cls) for name, s in probes]
+    # the same draw served two ways: independent per pixel (above), and
+    # constant over squares, as a segmentation's labels are
+    cls_piecewise = torch.as_tensor(_piecewise_labels(rng, H, W), device=dev)
+    rows = [_kernel_vs_plain(name, s, cfg, n_faces, cls, cls_piecewise)
+            for name, s in probes]
+    ab = None
+    if args.parent:
+        p2f_ab, _ = rasterize_setup(probes[0][1], cfg, H, W)
+        ab = _ab_counts(args.parent, p2f_ab, cls, cls_piecewise, n_faces)
+        del p2f_ab
     # bin_block=8: faces ride along in 8-face units (padded mesh, own caps)
     cfg8 = dataclasses.replace(RasterConfig(), bin_block=8,
                                global_from=cfg.global_from)
@@ -573,10 +820,14 @@ def main():
     # redesigned rasters against their plain versions
     _knife_edge_probe(cls, dev)
 
-    # -- phase 3: the main path ---------------------------------------------------
+    # the one-hot scan on view 0's image and on images it must refuse
     labels = rng.integers(0, N_CLASSES, (len(cams), H, W), dtype=np.int8)
     seg_cams = SegmentorCameraSet(cams, LabelSegmentor(labels, N_CLASSES))
+    onehot_row = _onehot_probes(mesh, cams, seg_cams.get_image_by_index(0), dev)
+
+    # -- phase 3: the main path ---------------------------------------------------
     raster_tiles.launches = face_counts.launches = subtile.launches = 0
+    onehot.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -584,10 +835,14 @@ def main():
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"raster_tiles": raster_tiles.launches,
-                "face_class_counts": face_counts.launches}
+                "face_class_counts": face_counts.launches,
+                "onehot_class": onehot.launches}
     for name, n in launches.items():
         if n < len(cams):
             raise RuntimeError(f"{name} launched {n} times for {len(cams)} views")
+    if launches["onehot_class"] != len(cams):
+        raise RuntimeError(f"{launches['onehot_class']} one-hot scans for "
+                           f"{len(cams)} views")
     seen = info["projection_counts"] > 0
     if avg.shape != (n_faces, N_CLASSES) or not np.isfinite(avg[seen]).all():
         raise RuntimeError(f"bad aggregate: shape {avg.shape}")
@@ -598,22 +853,38 @@ def main():
     frac_err = float(np.abs(avg[seen].sum(axis=1) - 1.0).max())
     if frac_err > 1e-5:
         raise RuntimeError(f"class fractions of seen faces sum off 1 by {frac_err}")
-    # host label preparation alone, for the breakdown
-    t1 = time.perf_counter()
-    img0 = seg_cams.get_image_by_index(0)
-    t2 = time.perf_counter()
-    cls0 = mesh._as_class_image(img0)
-    t3 = time.perf_counter()
+    peak_mem_gb = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+    # the same views with their class images from the numpy scan on the
+    # host: the aggregate must not differ in one element
+    state = init_aggregation(n_faces, N_CLASSES, dev)
+    for i in range(len(cams)):
+        b = cams.get_camera_batch([i], device=dev)
+        cls_i = torch.as_tensor(
+            mesh._as_class_image(seg_cams.get_image_by_index(i)), device=dev)
+        if i == 0:
+            cls0 = cls_i
+        counts_i, _, _ = fused_view_class_counts(
+            soa, b.world_to_cam[0], b.f[0], b.distortion[0], b.cx[0], b.cy[0],
+            cls_i, W, H, cfg, soa.shape[1], N_CLASSES,
+            mesh._resolve_distortion(cams, i, None))
+        state = accumulate_view(
+            state, counts_i, counts_i.sum(dim=1, keepdim=True).expand_as(counts_i))
+    avg_host_scan = finalize_aggregation(state).cpu().numpy()
+    if not np.array_equal(avg, avg_host_scan, equal_nan=True):
+        raise RuntimeError(
+            "the aggregate differs from the one built on the numpy scan's class "
+            f"images in {int((~np.isclose(avg, avg_host_scan, 0, 0, True)).sum())} "
+            "elements")
+    del state
     _line(3, views=len(cams), seconds=round(dt, 4),
           views_per_s=round(len(cams) / dt, 4), launches=launches,
           seen_frac=round(float(seen.mean()), 6), frac_sum_err=frac_err,
-          overflow=overflow, peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
-          host_segment_s=round(t2 - t1, 4), host_class_image_s=round(t3 - t2, 4),
+          overflow=overflow, peak_mem_gb=peak_mem_gb,
+          equals_host_scan_aggregate=True, **_label_stage_times(seg_cams, dev),
           card=smi)
 
     # view 0 again: the fused chain against the plain versions, bit for bit
     b0 = cams.get_camera_batch([0], device=dev)
-    cls0 = torch.as_tensor(cls0, device=dev)
     counts_k, over0, _ = fused_view_class_counts(
         soa, b0.world_to_cam[0], b0.f[0], b0.distortion[0], b0.cx[0],
         b0.cy[0], cls0, W, H, cfg, soa.shape[1], N_CLASSES, False)
@@ -650,11 +921,20 @@ def main():
 
     # where one view's device time goes: each stage of the fused chain
     # timed alone with CUDA events (launch gaps included)
-    cls_host = torch.as_tensor(mesh._as_class_image(seg_cams.get_image_by_index(0)))
+    cls_host = cls0.cpu()
+    upload = _PinnedUpload(dev)
+    state = init_aggregation(n_faces, N_CLASSES, dev)
     for i in (0, 1, 6):
         b = cams.get_camera_batch([i], device=dev)
         use_dist = mesh._resolve_distortion(cams, i, None)
         dist_args = (b.distortion[0], b.cx[0], b.cy[0]) if use_dist else None
+        # the view's one-hot image to the card: through the pinned staging
+        # buffer, as project_images does it, against a pageable copy
+        img_i = seg_cams.get_image_by_index(i)
+        img_host = torch.as_tensor(img_i)
+        (pageable_ms, _), (pinned_ms, pinned_spread) = _ab_ms(
+            lambda: img_host.to(dev), lambda: upload(img_i), runs=3)
+        img_dev = upload(img_i)
 
         def setup_i():
             return setup_from_soa(soa, b.world_to_cam[0], b.f[0], W, H,
@@ -665,8 +945,21 @@ def main():
         p2f_i = raster_tiles.raster_tiles(s_i.planes, s_i.bbox, cand_i, counts_i,
                                           cfg, H, W)
         cls_i = cls_host.to(dev)
+        counts_int = face_counts.face_class_counts(p2f_i, cls_i, soa.shape[1],
+                                                   N_CLASSES)
+
+        def view_tail():
+            # what follows the counts kernel: the float cast, the row sum
+            # and the fold into the running aggregate
+            c = counts_int.to(torch.float32)[:n_faces]
+            return accumulate_view(state, c,
+                                   c.sum(dim=1, keepdim=True).expand_as(c))
+
         _line("breakdown", view=i, distorted=use_dist,
+              h2d_onehot_ms=pinned_ms, h2d_onehot_spread_ms=pinned_spread,
+              h2d_onehot_pageable_ms=pageable_ms,
               h2d_class_image_ms=_cuda_ms(lambda: cls_host.to(dev)),
+              onehot_class_ms=_cuda_ms(lambda: onehot.onehot_to_class(img_dev)),
               setup_ms=_cuda_ms(setup_i),
               binning_ms=_cuda_ms(lambda: binned_face_lists(
                   bin_triangles(s_i, cfg, H, W), cfg)),
@@ -677,7 +970,10 @@ def main():
               fused_chain_ms=_cuda_ms(lambda: fused_view_class_counts(
                   soa, b.world_to_cam[0], b.f[0], b.distortion[0], b.cx[0],
                   b.cy[0], cls_i, W, H, cfg, soa.shape[1], N_CLASSES, use_dist)),
+              accumulate_ms=_cuda_ms(view_tail),
               list_entries=[int(c.sum()) for c in counts_i])
+        del img_dev, img_host, img_i
+    del state
     # -- phase 4: level S ------------------------------------------------------
     rows_s, launches_s = _level_s(mesh, cams, seg_cams, soa, cls, avg, info,
                                   nadir_c2w, smi)
@@ -688,7 +984,8 @@ def main():
     # main path's configuration (phase 2's first two views; level S: its
     # two views at the S configuration)
     def mean(rs, key):
-        return statistics.mean(r[key] for r in rs)
+        values = [r[key] for r in rs]
+        return None if None in values else statistics.mean(values)
 
     main_rows = rows[:2]
     all_rows = rows + rows_s
@@ -712,7 +1009,17 @@ def main():
              plain_ms=mean(main_rows, "counts_plain_ms"),
              bound_ms=mean(main_rows, "counts_bound_ms"),
              bound_by=main_rows[0]["counts_bound_by"],
-             library_ms=mean(main_rows, "counts_library_ms")),
+             library_ms=mean(main_rows, "counts_library_ms"),
+             # ms and its neighbours: labels drawn independently per pixel;
+             # piecewise: constant over 64 x 64 pixel squares; device_ms:
+             # the zero fill and the kernel on the device (profiler)
+             device_ms=mean(main_rows, "counts_device_ms"),
+             piecewise_ms=mean(main_rows, "counts_piecewise_ms"),
+             piecewise_plain_ms=mean(main_rows, "counts_piecewise_plain_ms"),
+             piecewise_library_ms=mean(main_rows, "counts_piecewise_library_ms"),
+             piecewise_device_ms=mean(main_rows, "counts_piecewise_device_ms"),
+             # in turns with the --parent tree's wrapper (the ab_counts line)
+             turns=ab),
         dict(name="s_raster", route="cuda",
              source="geograypher_tpu_torch/csrc/s_raster.cu",
              replaces=TPU_KERNELS["B5"], launches=launches_s["s_raster"],
@@ -721,6 +1028,16 @@ def main():
              plain_ms=mean(rows_s, "s_raster_plain_ms"),
              bound_ms=mean(rows_s, "s_raster_bound_ms"),
              bound_by=rows_s[0]["s_raster_bound_by"], library_ms=None),
+        dict(name="onehot_class", route="cuda",
+             source="geograypher_tpu_torch/csrc/onehot_class.cu",
+             replaces=ONEHOT_REPLACES,
+             launches=launches["onehot_class"] + launches_s["onehot_class"],
+             max_abs_err=onehot_row["max_abs_err"], ms=onehot_row["float32"]["ms"],
+             plain_ms=onehot_row["float32"]["plain_ms"],
+             bound_ms=onehot_row["float32"]["bound_ms"], bound_by="bytes",
+             library_ms=None, float64_ms=onehot_row["float64"]["ms"],
+             float64_plain_ms=onehot_row["float64"]["plain_ms"],
+             float64_bound_ms=onehot_row["float64"]["bound_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -767,6 +1084,7 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
 
     # the S path through the entry point
     raster_tiles.launches = face_counts.launches = subtile.launches = 0
+    onehot.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     avg_s, info_s = mesh.aggregate_projected_images(seg_cams, config=cfg_s)
@@ -774,11 +1092,15 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
     dt = time.perf_counter() - t0
     launches = {"raster_tiles": raster_tiles.launches,
                 "face_class_counts": face_counts.launches,
-                "s_raster": subtile.launches}
+                "s_raster": subtile.launches,
+                "onehot_class": onehot.launches}
     for name, n in launches.items():
         if n < len(cams):
             raise RuntimeError(f"level S: {name} launched {n} times for "
                                f"{len(cams)} views")
+    if launches["onehot_class"] != len(cams):
+        raise RuntimeError(f"level S: {launches['onehot_class']} one-hot scans for "
+                           f"{len(cams)} views")
     seen = info_s["projection_counts"] > 0
     if avg_s.shape != avg.shape or not np.isfinite(avg_s[seen]).all():
         raise RuntimeError(f"level S: bad aggregate, shape {avg_s.shape}")
@@ -797,7 +1119,8 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
     _line(4, views=len(cams), seconds=round(dt, 4),
           views_per_s=round(len(cams) / dt, 4), launches=launches,
           seen_frac=round(float(seen.mean()), 6), frac_sum_err=frac_err,
-          overflow=overflow, faces_equal_to_main_path=same_counts, card=smi)
+          overflow=overflow, faces_equal_to_main_path=same_counts,
+          **_label_stage_times(seg_cams, dev), card=smi)
 
     # view 0: level S on against off, and the unfused counts (B4's
     # counterpart) on its pix2face

@@ -48,8 +48,10 @@ SIGNATURES = {
     # planes, bbox, cells, s_unit, keys, best_w, best_id, n_faces, H, W,
     # sh, sw, s_block, stream
     "gg_s_raster": [_P] * 7 + [_I64] + [_I] * 5 + [_P],
-    # pix2face, class_image, counts, n_pix, n_faces, n_classes, stream
-    "gg_face_class_counts": [_P, _P, _P, _I64, _I64, _I, _P],
+    # pix2face, class_image, counts, H, W, n_faces, n_classes, stream
+    "gg_face_class_counts": [_P, _P, _P, _I, _I, _I64, _I, _P],
+    # image, class_image, violations, n_pix, n_classes, is_double, stream
+    "gg_onehot_class": [_P, _P, _P, _I64, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -10,10 +10,13 @@ kernel ``csrc/face_class_counts.cu``; on a CPU tensor it runs
 Kernel source note.  Replaces the TPU face-block folds
 ``geograypher_tpu/ops/agg_tiled.py`` ``face_counts_from_tiles`` (B3) and
 ``_face_counts_units`` (B2), whose tile entries, windows and digit planes
-work around slow TPU scatters (``agg_tiled.py:5-10``).  On the H100 it is
-bound by memory traffic and atomic throughput: one thread per pixel adds
-1 to ``counts[f * C + c]`` with an int32 atomic, which keeps the counts
-exact and identical from run to run.
+work around slow TPU scatters (``agg_tiled.py:5-10``).  On the H100 the
+counts are int32 atomics into the (F, C) table, exact and identical from
+run to run, merged before they are issued: a warp takes an 8 x 4 pixel
+patch, groups the lanes of equal ``f * C + c`` with ``__match_any_sync``
+and adds each group's size once.  It is bound by bytes (the table's zero
+fill here, 8 bytes a pixel read, the table written back) and, on labels
+that differ from pixel to pixel, by the L2's atomic rate.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def face_class_counts(
     lib = build.load()
     err = lib.gg_face_class_counts(
         pix2face.data_ptr(), class_image.data_ptr(), counts.data_ptr(),
-        pix2face.numel(), n_faces, n_classes,
+        pix2face.shape[0], pix2face.shape[1], n_faces, n_classes,
         build.stream_ptr(pix2face.device),
     )
     build.check(err, "gg_face_class_counts")

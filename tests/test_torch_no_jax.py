@@ -40,6 +40,7 @@ names = ["chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(
         geograypher_tpu_torch.__path__, "geograypher_tpu_torch.")
 ]
+assert "geograypher_tpu_torch.ops.onehot" in names, names
 for name in names:
     importlib.import_module(name)
 assert not loaded(*REFUSED), loaded(*REFUSED)
@@ -47,8 +48,10 @@ print(len(names))
 """
 
 # chip_smoke.py's main path at a tiny size on CPU tensors, with the whole
-# JAX package refused: the scene, the sorted mesh, a segmentor camera set
-# and the streaming aggregation, with level S off and on
+# JAX package refused: the scene, the sorted mesh, a segmentor camera set,
+# the one-hot probes (accepted images against the numpy scan, refused
+# images down the means path) and the streaming aggregation, with level S
+# off and on
 CHIP_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas")
 refuse(*REFUSED)
@@ -70,6 +73,13 @@ cams = cs.CameraSet(c2ws, sensors, sensor_IDs=[0, 1])
 labels = np.random.default_rng(0).integers(0, 3, (2, h, w), dtype=np.int8)
 seg = cs.SegmentorCameraSet(cams, cs.LabelSegmentor(labels, 3))
 assert seg.get_image_by_index(1).dtype == np.float32
+probes = list(cs._onehot_probe_images(seg.get_image_by_index(0)))
+assert [accept for _, _, accept in probes] == [True] * 3 + [False] * 3
+for name, image, accept in probes:
+    cs._check_onehot(name, image, accept, "cpu")
+    if not accept:
+        cs._check_refused_takes_means(name, mesh, cams, image)
+cs.onehot.launches = 0
 avg, info = mesh.aggregate_projected_images(seg)
 seen = info["projection_counts"] > 0
 assert avg.shape == (len(faces), 3) and seen.mean() > 0.5
@@ -84,7 +94,8 @@ seen_s = info_s["projection_counts"] > 0
 assert (seen_s == seen).mean() > 0.95
 assert np.allclose(avg_s[seen_s].sum(axis=1), 1.0, atol=1e-5)
 assert np.isnan(avg_s[~seen_s]).all()
-assert cs.subtile.launches == 0  # CPU tensors take the plain versions
+# CPU tensors take the plain versions
+assert cs.subtile.launches == 0 and cs.onehot.launches == 0
 assert not loaded(*REFUSED), loaded(*REFUSED)
 print("ok")
 """

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's aggregation path once on one CUDA card.
+"""Drive the PyTorch port's aggregation and render paths once on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -38,7 +38,23 @@ Phases (each prints one line; any failure raises and exits nonzero):
    kernel's launch count; view 0's pix2face with level S on against the
    same configuration with it off; the unfused counts
    (``ops/agg_tiled.py``) on view 0's pix2face; and the stage breakdown
-   of views 0/1/6 with level S on and off.
+   of views 0/1/6 with level S on and off;
+5. the render path, from a survey on disk (``"5a"``: the bench mesh as a
+   binary PLY in a local frame, the suite's 8 cameras as a Metashape XML
+   with a local -> ECEF transform, six seeded label polygons of four
+   species in UTM as GeoJSON, all in a temporary folder): ``"5b"``, the
+   ``render_labels`` entry point with ``device`` left at its default
+   writes 8 PNG masks (8 raster launches, no other kernel, zero
+   overflow); every file equals the mask rebuilt from its view's
+   pix2face, holds 255 and at least two classes, view 0 and view 6
+   (distorted) equal their re-runs through the plain raster and numpy's
+   remap bit for bit, and a second cached ``pix2face`` reads the cache;
+   ``"5b_view"`` times each view's stages (raster chain, remap, texture
+   gather, cast on the device against the cast in numpy, download, PNG
+   encode and write at zlib levels 1 and 6); ``"5c"``, the round trip:
+   ``aggregate_images`` reads the rendered folder back and the predicted
+   class of the observed, labelled faces must be the mesh's face texture
+   for at least ``ROUND_TRIP_MIN_AGREE`` of them.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -65,13 +81,18 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from geograypher_tpu_torch.cameras.core import CameraSet
+from geograypher_tpu_torch.cameras.distortion import remap_image, remap_image_torch
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
+from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
+from geograypher_tpu_torch.entrypoints.render_labels import render_labels
 from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.meshes.mesh import TexturedMesh, _PinnedUpload
 from geograypher_tpu_torch.ops import face_counts, onehot, raster_tiles, subtile
@@ -81,6 +102,7 @@ from geograypher_tpu_torch.ops.aggregate import (
     finalize_aggregation,
     init_aggregation,
     project_image_to_faces,
+    render_texture,
 )
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
@@ -93,6 +115,11 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     setup_triangles,
 )
+from geograypher_tpu_torch.utils import crs as crs_utils
+from geograypher_tpu_torch.utils.example_data import (
+    local_to_ecef_frame,
+    make_metashape_xml,
+)
 from geograypher_tpu_torch.utils.fixtures import (
     brute_force_pix2face,
     gather_tri_verts,
@@ -101,6 +128,13 @@ from geograypher_tpu_torch.utils.fixtures import (
     nadir_camera,
     oblique_camera,
 )
+from geograypher_tpu_torch.utils.io import (
+    PNG_ZLIB_LEVEL,
+    read_image_or_numpy,
+    write_image,
+)
+from geograypher_tpu_torch.utils.meshio import save_mesh
+from geograypher_tpu_torch.utils.vector import Polygon, VectorData
 
 N_CLASSES = 10
 H, W = 2160, 3840
@@ -977,10 +1011,22 @@ def main():
     # -- phase 4: level S ------------------------------------------------------
     rows_s, launches_s = _level_s(mesh, cams, seg_cams, soa, cls, avg, info,
                                   nadir_c2w, smi)
+    # -- phase 5: the render path, from a survey on disk -------------------------
+    # caps from the census of every view's pinhole render (a distorted
+    # sensor's mask is the remap of that), for a mesh loaded unsorted
+    pinhole = []
+    for i in range(len(cams)):
+        b = cams.get_camera_batch([i], device=dev)
+        pinhole.append(setup_from_soa(soa, b.world_to_cam[0], b.f[0], W, H, cfg.znear))
+    census_r, caps_r = _census_caps(pinhole, RasterConfig())
+    del pinhole
+    _line("setup_r", census=census_r, caps=list(caps_r))
+    launches_r, launches_back = _render_phase(
+        verts, faces, c2ws, sensors, sensor_ids, RasterConfig(caps=caps_r), smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
 
-    # one line per kernel: launches are the main paths' (phase 3 and the
-    # level-S path); times and bounds are the kernel-vs-plain views at the
+    # one line per kernel: launches are the main paths' (phase 3, the
+    # level-S path, and phase 5's two entry points); times and bounds are the kernel-vs-plain views at the
     # main path's configuration (phase 2's first two views; level S: its
     # two views at the S configuration)
     def mean(rs, key):
@@ -993,7 +1039,8 @@ def main():
         dict(name="raster_tiles", route="cuda",
              source="geograypher_tpu_torch/csrc/raster_tiles.cu",
              replaces=TPU_KERNELS["B1"],
-             launches=launches["raster_tiles"] + launches_s["raster_tiles"],
+             launches=(launches["raster_tiles"] + launches_s["raster_tiles"]
+                       + launches_r["raster_tiles"] + launches_back["raster_tiles"]),
              max_abs_err=max(r["raster_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "raster_ms"),
              plain_ms=mean(main_rows, "raster_plain_ms"),
@@ -1003,7 +1050,8 @@ def main():
              source="geograypher_tpu_torch/csrc/face_class_counts.cu",
              replaces=", ".join(TPU_KERNELS[k] for k in ("B2", "B3", "B4", "B6")),
              launches=(launches["face_class_counts"]
-                       + launches_s["face_class_counts"]),
+                       + launches_s["face_class_counts"]
+                       + launches_back["face_class_counts"]),
              max_abs_err=max(r["counts_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "counts_ms"),
              plain_ms=mean(main_rows, "counts_plain_ms"),
@@ -1031,7 +1079,8 @@ def main():
         dict(name="onehot_class", route="cuda",
              source="geograypher_tpu_torch/csrc/onehot_class.cu",
              replaces=ONEHOT_REPLACES,
-             launches=launches["onehot_class"] + launches_s["onehot_class"],
+             launches=(launches["onehot_class"] + launches_s["onehot_class"]
+                       + launches_back["onehot_class"]),
              max_abs_err=onehot_row["max_abs_err"], ms=onehot_row["float32"]["ms"],
              plain_ms=onehot_row["float32"]["plain_ms"],
              bound_ms=onehot_row["float32"]["bound_ms"], bound_by="bytes",
@@ -1196,6 +1245,286 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
               s_census=subtile.subtile_counts_census(s_i, cfg_s, H, W).tolist(),
               card=smi)
     return rows, launches
+
+
+SPECIES = ("cedar", "fir", "oak", "pine")
+ROUND_TRIP_MIN_AGREE = 0.99  # share of observed, labelled faces that come back
+
+
+def _label_polygons(origin_xy, size, seed=0):
+    """Six seeded star polygons in a 3 x 2 grid over the mesh's footprint
+    (about half of it), each with one of four species names."""
+    rng = np.random.default_rng(seed)
+    polys, names = [], []
+    for k in range(6):
+        cx = (k % 3 - 1) * size / 3 + rng.uniform(-0.05, 0.05) * size
+        cy = (k // 3 - 0.5) * size / 2 + rng.uniform(-0.05, 0.05) * size
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 9))
+        radius = rng.uniform(0.17, 0.23, (9, 1)) * size
+        ring = np.array([cx, cy]) + radius * np.stack([np.cos(ang), np.sin(ang)], 1)
+        polys.append(Polygon(ring + np.asarray(origin_xy)))
+        names.append(SPECIES[k % len(SPECIES)])
+    return polys, names
+
+
+def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height,
+                  size=4.0, lat=36.0, lon=-119.0):
+    """Phase 5a: the survey on disk.  The mesh as a binary PLY in its local
+    frame, the cameras as a Metashape XML with a local -> ECEF transform,
+    and seeded label polygons in UTM as GeoJSON; no image files."""
+    folder = Path(folder)
+    t0 = time.perf_counter()
+    mesh_file = folder / "mesh.ply"
+    save_mesh(mesh_file, verts, faces)
+    names = [f"view_{k:02d}.png" for k in range(len(c2ws))]
+    cameras_file = folder / "cameras.xml"
+    order = sorted(sensors)
+    cameras_file.write_text(make_metashape_xml(
+        c2ws, names, local_to_ecef_frame(lat, lon), 0.0, width, height,
+        sensors=[{"f": sensors[k]["f"], "cx": sensors[k].get("cx", 0.0),
+                  "cy": sensors[k].get("cy", 0.0),
+                  "distortion": sensors[k].get("distortion_params")} for k in order],
+        sensor_ids=[order.index(k) for k in sensor_ids]))
+    utm = crs_utils.utm_epsg_for(lat, lon)
+    origin = crs_utils.transform_points(np.array([[lat, lon, 0.0]]), 4326, utm)[0]
+    polys, species = _label_polygons(origin[:2], size)
+    labels_file = folder / "labels.geojson"
+    VectorData(polys, {"species": species}, epsg=utm).to_file(labels_file)
+    survey = dict(mesh_file=mesh_file, cameras_file=cameras_file,
+                  labels_file=labels_file, image_folder=folder / "images",
+                  render_folder=folder / "renders", names=names)
+    _line("5a", faces=int(len(faces)), views=len(c2ws), image=[height, width],
+          mesh_bytes=mesh_file.stat().st_size, polygons=len(polys),
+          species=sorted(set(species)), utm_epsg=utm,
+          write_s=round(time.perf_counter() - t0, 3))
+    return survey
+
+
+def _mask_of(p2f, face_tex):
+    """The uint8 mask of a pix2face map, in numpy: the face's texture,
+    NaN and background 255, clipped to 0..255."""
+    tex = np.append(face_tex[:, 0], np.nan).astype(np.float32)
+    data = tex[p2f]
+    return np.clip(np.where(np.isfinite(data), data, 255.0), 0, 255).astype(np.uint8)
+
+
+def _render_checked(survey, cfg, device=None):
+    """Phase 5b: ``render_labels`` through the entry point (``device`` left
+    at its default unless given), and every check of what it wrote.
+    Returns (mesh, cameras, the entry point's launch counts, fields of
+    the phase line)."""
+    on = {} if device is None else {"device": device}
+    raster_tiles.launches = face_counts.launches = subtile.launches = 0
+    onehot.launches = 0
+    on_card = device is None or torch.device(device).type == "cuda"
+    held_gb = None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what the earlier phases still hold on the card
+        held_gb = round(torch.cuda.memory_allocated() / 1e9, 3)
+    t0 = time.perf_counter()
+    mesh, cams = render_labels(
+        survey["mesh_file"], survey["cameras_file"], survey["image_folder"],
+        texture=survey["labels_file"], texture_column_name="species",
+        render_savefolder=survey["render_folder"], raster_config=cfg, **on)
+    wall_s = time.perf_counter() - t0
+    peak_mem_gb = round(torch.cuda.max_memory_allocated() / 1e9, 3) if on_card else None
+    launches = {"raster_tiles": raster_tiles.launches, "s_raster": subtile.launches,
+                "face_class_counts": face_counts.launches,
+                "onehot_class": onehot.launches}
+    n = len(survey["names"])
+    want = {"raster_tiles": n if on_card else 0, "s_raster": 0,
+            "face_class_counts": 0, "onehot_class": 0}
+    if len(cams) != n or launches != want:
+        raise RuntimeError(f"render_labels: {len(cams)} cameras of {n}, launches "
+                           f"{launches}, expected {want}")
+    files = sorted(p.name for p in survey["render_folder"].iterdir())
+    if files != survey["names"]:
+        raise RuntimeError(f"render_labels wrote {files}")
+    overflow = sum(mesh.check_raster_capacity(cams, i) for i in range(n))
+    if overflow:
+        raise RuntimeError(f"render caps {cfg.caps} overflow ({overflow})")
+    face_tex = mesh.get_texture(request_vertex_texture=False)
+    h, w = cams.sensors[cams.sensor_IDs[0]]["image_height"], \
+        cams.sensors[cams.sensor_IDs[0]]["image_width"]
+    classes, file_bytes, p2f0 = [], [], None
+    first_distorted = next(i for i in range(n)
+                           if mesh._distortion_map_device(cams, i, 1.0) is not None)
+    for i, name in enumerate(survey["names"]):
+        path = survey["render_folder"] / name
+        mask = read_image_or_numpy(path)
+        if mask.shape != (h, w) or mask.dtype != np.uint8:
+            raise RuntimeError(f"{name}: {mask.dtype} {mask.shape}")
+        p2f = mesh.pix2face(cams, [i])[0]
+        if i == 0:
+            p2f0 = p2f
+        if not np.array_equal(mask, _mask_of(p2f, face_tex)):
+            raise RuntimeError(f"{name} is not its pix2face's mask")
+        ids = np.unique(mask)
+        if 255 not in ids or len(ids) < 3:
+            raise RuntimeError(f"{name} holds only {ids.tolist()}")
+        classes.append(ids[ids != 255].tolist())
+        file_bytes.append(path.stat().st_size)
+        # view 0 and the first distorted view (view 6 of the suite) again
+        # through the plain versions: the plain raster, numpy's remap of
+        # the downloaded pinhole pix2face with the same map, numpy's
+        # texture lookup
+        if i in (0, first_distorted):
+            b = cams.get_camera_batch([i], device=mesh.device)
+            setup = setup_from_soa(mesh._tri_soa_device(cams, cfg.bin_block),
+                                   b.world_to_cam[0], b.f[0], w, h, cfg.znear)
+            cand, counts = binned_face_lists(bin_triangles(setup, cfg, h, w), cfg)
+            plain = raster_tiles.raster_tiles_plain(
+                setup.planes.contiguous(), cand, counts, cfg, h, w).cpu().numpy()
+            w2i = mesh._distortion_map_device(cams, i, 1.0)
+            if w2i is not None:
+                plain = remap_image(plain, w2i.cpu().numpy(), fill_value=-1,
+                                    interpolation_order=0)
+            if not np.array_equal(mask, _mask_of(plain, face_tex)):
+                raise RuntimeError(
+                    f"view {i}: the file differs from the plain re-run in "
+                    f"{int((mask != _mask_of(plain, face_tex)).sum())} pixels")
+    # the pix2face cache: the second call reads the file and renders nothing
+    cache = survey["render_folder"].parent / "cache"
+    first = mesh.pix2face(cams, [0], save_to_cache=True, cache_folder=cache)
+    before = raster_tiles.launches
+    again = mesh.pix2face(cams, [0], save_to_cache=True, cache_folder=cache)
+    cache_files = sorted(cache.glob("pix2face_*.ggr"))
+    if (raster_tiles.launches != before or len(cache_files) != 1
+            or not np.array_equal(again, first) or not np.array_equal(first[0], p2f0)):
+        raise RuntimeError("the pix2face cache did not serve view 0's map")
+    fields = dict(
+        views=n, faces=mesh.n_faces, wall_s=round(wall_s, 3), launches=launches,
+        overflow=overflow, files_equal_pix2face_masks=True,
+        plain_rerun_views=[0, first_distorted], plain_rerun_equal=True,
+        cache_hit_equal=True,
+        cache_file_bytes=cache_files[0].stat().st_size, classes=classes,
+        labelled_vertex_share=round(float(np.isfinite(mesh.vertex_texture).mean()), 4),
+        file_bytes=file_bytes, peak_mem_gb=peak_mem_gb,
+        held_before_gb=held_gb)
+    return mesh, cams, launches, fields
+
+
+def _render_times(survey, mesh, cams, cfg):
+    """Where a rendered view's time goes on the card, stage by stage (CUDA
+    events for the device stages, ``perf_counter`` for the host ones;
+    medians of 3), and the host steps of the entry point timed alone."""
+    dev = mesh.device
+    face_tex = mesh._on_device(mesh.get_texture(False), torch.float32)
+    out = survey["render_folder"].parent / "timing"
+
+    def host_ms(fn, runs=3):
+        fn()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def cast(img):
+        data = torch.where(torch.isfinite(img[..., 0]), img[..., 0], 255.0)
+        return data.clamp(0, 255).to(torch.uint8)
+
+    rows = []
+    for i in range(len(cams)):
+        w2i = mesh._distortion_map_device(cams, i, 1.0)
+        pinhole, _ = mesh._rasterize_view(cams, i, 1.0, False, cfg)
+        p2f = pinhole if w2i is None else remap_image_torch(pinhole, w2i, -1)
+        img = render_texture(p2f, face_tex)
+        mask_dev = cast(img)
+        mask = mask_dev.cpu().numpy()
+        img_host = img.cpu().numpy()
+        row = dict(
+            view=i, distorted=w2i is not None,
+            raster_chain_ms=_cuda_ms(
+                lambda: mesh._rasterize_view(cams, i, 1.0, False, cfg), runs=3),
+            remap_ms=None if w2i is None else _cuda_ms(
+                lambda: remap_image_torch(pinhole, w2i, -1), runs=3),
+            texture_gather_ms=_cuda_ms(lambda: render_texture(p2f, face_tex), runs=3),
+            device_cast_ms=_cuda_ms(lambda: cast(img), runs=3),
+            download_uint8_ms=host_ms(lambda: mask_dev.cpu()),
+            # the other order: the float32 render down, the cast in numpy
+            download_float32_ms=host_ms(lambda: img.cpu()),
+            host_cast_ms=host_ms(lambda: np.clip(np.where(
+                np.isfinite(img_host[..., 0]), img_host[..., 0], 255.0), 0, 255
+            ).astype(np.uint8)),
+        )
+        for level in (1, 6):
+            row[f"png_zlib{level}_ms"] = host_ms(
+                lambda: write_image(out / f"l{level}.png", mask, level))
+            row[f"png_zlib{level}_bytes"] = (out / f"l{level}.png").stat().st_size
+        rows.append(row)
+        _line("5b_view", **row)
+    # the render loop alone, warm: what save_renders costs for the 8 views
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh.save_renders(cams, output_folder=out / "again")
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    # the entry point's host steps, each alone
+    t0 = time.perf_counter()
+    again = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                         device=dev)
+    t1 = time.perf_counter()
+    again.select_mesh_ROI(survey["labels_file"], 50.0, inplace=True)
+    t2 = time.perf_counter()
+    again.load_texture(survey["labels_file"], "species")
+    t3 = time.perf_counter()
+    again.get_texture(request_vertex_texture=False)
+    t4 = time.perf_counter()
+    return dict(render_loop_s=round(loop_s, 4),
+                render_views_per_s=round(len(cams) / loop_s, 4),
+                load_s=round(t1 - t0, 3), roi_s=round(t2 - t1, 3),
+                texture_s=round(t3 - t2, 3), vert_to_face_s=round(t4 - t3, 3))
+
+
+def _round_trip(survey, mesh, cfg, device=None, min_agree=ROUND_TRIP_MIN_AGREE):
+    """Phase 5c: the rendered masks back onto the mesh through the
+    ``aggregate_images`` entry point; of the faces observed and labelled,
+    the share whose predicted class is the mesh's face texture."""
+    on = {} if device is None else {"device": device}
+    t0 = time.perf_counter()
+    pred, avg = aggregate_images(
+        survey["mesh_file"], survey["cameras_file"],
+        image_folder=survey["render_folder"], label_folder=survey["render_folder"],
+        take_every_nth_camera=None, n_classes=len(mesh.IDs_to_labels),
+        raster_config=cfg, **on)
+    wall_s = time.perf_counter() - t0
+    truth = mesh.get_texture(request_vertex_texture=False)[:, 0]
+    if pred.shape != truth.shape or avg.shape != (len(truth), len(mesh.IDs_to_labels)):
+        raise RuntimeError(f"round trip: predictions {pred.shape}, faces {truth.shape}")
+    both = np.isfinite(pred) & np.isfinite(truth)
+    agree = float((pred[both] == truth[both]).mean())
+    # a face without a label rendered as 255 everywhere: nothing to predict
+    stray = int((np.isfinite(pred) & ~np.isfinite(truth)).sum())
+    if agree < min_agree or both.mean() < 0.2:
+        raise RuntimeError(f"round trip: {agree:.6f} of {int(both.sum())} observed, "
+                           f"labelled faces came back (needs {min_agree})")
+    return dict(wall_s=round(wall_s, 3), faces=len(truth),
+                observed_and_labelled=int(both.sum()),
+                labelled=int(np.isfinite(truth).sum()), agree=agree,
+                min_agree=min_agree, predicted_without_label=stray)
+
+
+def _render_phase(verts, faces, c2ws, sensors, sensor_ids, cfg, smi):
+    """Phase 5: the render path from a survey on disk, and the round trip.
+    Returns the kernels' launches on the two entry points."""
+    with tempfile.TemporaryDirectory(prefix="gg_smoke_") as folder:
+        survey = _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, W, H)
+        mesh, cams, launches, fields = _render_checked(survey, cfg)
+        times = _render_times(survey, mesh, cams, cfg)
+        _line("5b", **fields, **times, png_zlib_level=PNG_ZLIB_LEVEL, card=smi)
+        raster_tiles.launches = face_counts.launches = onehot.launches = 0
+        trip = _round_trip(survey, mesh, cfg)
+        back = {"raster_tiles": raster_tiles.launches,
+                "face_class_counts": face_counts.launches,
+                "onehot_class": onehot.launches}
+        if any(n != len(c2ws) for n in back.values()):
+            raise RuntimeError(f"round trip launches {back} for {len(c2ws)} views")
+        _line("5c", **trip, launches=back, card=smi)
+    return launches, back
 
 
 if __name__ == "__main__":

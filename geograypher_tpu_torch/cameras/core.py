@@ -1,7 +1,7 @@
 """Camera model core: camera batches as torch tensors + the host-side set.
 
 Port of the parts of ``geograypher_tpu/cameras/core.py`` that the
-aggregation path uses.  Conventions are the JAX package's: ``cam_to_world``
+aggregation and render paths use.  Conventions are the JAX package's: ``cam_to_world``
 is a 4x4 transform in the photogrammetry local frame, the camera looks
 along +Z with x right and y down, ``f`` is in pixels and ``cx, cy`` are
 principal-point offsets from the image centre.  Host geometry stays
@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -19,7 +20,14 @@ import numpy as np
 import torch
 
 from geograypher_tpu_torch.constants import EXAMPLE_INTRINSICS, PATH_TYPE
+from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import resolve_device
+from geograypher_tpu_torch.utils.io import read_image_or_numpy, resize_area
+from geograypher_tpu_torch.utils.vector import (
+    Polygon,
+    VectorData,
+    points_near_polygons,
+)
 
 # Distortion parameter vector layout (Brown-Conrady, Metashape order).
 DISTORTION_KEYS = ("k1", "k2", "k3", "k4", "p1", "p2", "b1", "b2")
@@ -34,6 +42,12 @@ def distortion_dict_to_vector(params: Optional[Dict[str, float]]) -> np.ndarray:
         for i, k in enumerate(DISTORTION_KEYS):
             vec[i] = float(params.get(k, 0.0))
     return vec
+
+
+def distortion_vector_to_dict(vec: np.ndarray) -> Dict[str, float]:
+    return {
+        k: float(v) for k, v in zip(DISTORTION_KEYS, np.asarray(vec)) if v != 0.0
+    }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +188,11 @@ class CameraSet:
     def __len__(self) -> int:
         return len(self.cam_to_world_transforms)
 
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return self.get_subset_cameras(range(*idx.indices(len(self))))
+        return self.get_subset_cameras([idx])
+
     def get_local_to_epsg_4978_transform(self):
         return self.local_to_epsg_4978_transform
 
@@ -215,11 +234,98 @@ class CameraSet:
     def get_subset_every_nth(self, n: int) -> "CameraSet":
         return self.get_subset_cameras(range(0, len(self), max(int(n), 1)))
 
+    def get_subset_ROI(
+        self,
+        ROI,
+        buffer_radius: float = 0.0,
+        is_geospatial: Optional[bool] = None,
+    ) -> "CameraSet":
+        """Cameras located within (a buffer of) the ROI geometry.
+
+        Geospatial ROIs are compared against camera lon/lats in the ROI's
+        projected CRS; non-geospatial ROIs against local-frame locations.
+        The buffer is an exact distance test
+        (:func:`~geograypher_tpu_torch.utils.vector.points_near_polygons`),
+        where the JAX package buffers on a raster grid.
+        """
+        if isinstance(ROI, Polygon):
+            ROI = VectorData([ROI], epsg=4326 if is_geospatial else None)
+        elif not isinstance(ROI, VectorData):
+            ROI = VectorData.read_file(ROI)
+        if is_geospatial is None:
+            is_geospatial = ROI.epsg is not None
+
+        if is_geospatial:
+            ROI = ROI.ensure_projected()
+            lon_lats = self.get_lon_lat_coords()
+            lla = np.array([[ll[1], ll[0], 0.0] for ll in lon_lats]).reshape(-1, 3)
+            pts = crs_utils.transform_points(lla, 4326, ROI.epsg)[:, :2]
+        else:
+            pts = self.get_camera_locations()[:, :2]
+
+        polys = [g for g in ROI.geometries if isinstance(g, Polygon)]
+        inside = points_near_polygons(polys, pts, buffer_radius)
+        return self.get_subset_cameras(np.where(inside)[0])
+
     def get_image_filename(self, index: int, absolute: bool = True):
         f = self.image_filenames[index]
         if f is None:
             return None
         return Path(f).absolute() if absolute else Path(f)
+
+    def find_missing_images(self) -> List[Path]:
+        return [
+            f
+            for f in self.image_filenames
+            if f is not None and not Path(f).exists()
+        ]
+
+    def get_camera_locations(self) -> np.ndarray:
+        """(N, 3) camera centers in the local frame."""
+        if len(self) == 0:
+            return np.zeros((0, 3))
+        return np.stack(
+            [t[:3, 3] / t[3, 3] for t in self.cam_to_world_transforms], axis=0
+        )
+
+    def get_lon_lat_coords(self) -> List[Optional[Tuple[float, float]]]:
+        """Per-camera (lon, lat); derived from the transforms if unset."""
+        if all(ll is not None for ll in self.lon_lats):
+            return list(self.lon_lats)
+        if self.local_to_epsg_4978_transform is None:
+            return list(self.lon_lats)
+        locs = self.get_camera_locations()
+        hom = np.concatenate([locs, np.ones((len(locs), 1))], axis=1)
+        ecef = (self.local_to_epsg_4978_transform @ hom.T).T[:, :3]
+        lat, lon, _ = crs_utils.ecef_to_lla(ecef[:, 0], ecef[:, 1], ecef[:, 2])
+        self.lon_lats = list(zip(lon, lat))
+        return list(self.lon_lats)
+
+    def get_camera_hash(self, include_image_hash: bool = False) -> str:
+        """Content hash of the set's geometry, INCLUDING distortion
+        parameters: this hash keys the pix2face disk cache, and a
+        distortion-warped map is stale the moment any coefficient changes.
+        Equal to the JAX package's digest for an equal set."""
+
+        def canonical(v):
+            if isinstance(v, dict):
+                return tuple(sorted((k, canonical(x)) for k, x in v.items()))
+            if isinstance(v, (list, tuple, np.ndarray)):
+                return tuple(canonical(x) for x in np.asarray(v).reshape(-1))
+            if isinstance(v, (np.floating, np.integer)):
+                return v.item()
+            return v
+
+        hasher = hashlib.sha256()
+        for i, t in enumerate(self.cam_to_world_transforms):
+            hasher.update(np.ascontiguousarray(t).tobytes())
+            sensor = self.sensors[self.sensor_IDs[i]]
+            hasher.update(
+                repr(sorted((k, canonical(v)) for k, v in sensor.items())).encode()
+            )
+            if include_image_hash and self.image_filenames[i] is not None:
+                hasher.update(str(self.image_filenames[i]).encode())
+        return hasher.hexdigest()
 
     def get_camera_batch(
         self,
@@ -263,9 +369,8 @@ class CameraSet:
 
     def get_image_by_index(self, index: int, image_scale: float = 1.0) -> np.ndarray:
         """Load camera ``index``'s image (.npy or an image file), keeping
-        raw images in a small LRU cache; resizing runs per call."""
-        from geograypher_tpu_torch.utils.io import read_image_or_numpy
-
+        raw images in a small LRU cache; resizing (area averaging, for
+        ``image_scale < 1``) runs per call."""
         fname = self.get_image_filename(index)
         if fname is None:
             raise FileNotFoundError(f"Camera {index} has no image filename")
@@ -283,9 +388,7 @@ class CameraSet:
                 while len(cache) > self.image_cache_size:
                     cache.popitem(last=False)
         if image_scale != 1.0:
-            import cv2
-
             new_w = int(img.shape[1] * image_scale)
             new_h = int(img.shape[0] * image_scale)
-            img = cv2.resize(img, (new_w, new_h), interpolation=cv2.INTER_AREA)
+            img = resize_area(img, new_w, new_h)
         return img

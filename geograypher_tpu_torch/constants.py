@@ -10,6 +10,9 @@ PATH_TYPE = Union[str, Path]
 LAT_LON_EPSG = 4326
 EARTH_CENTERED_EARTH_FIXED_EPSG = 4978
 
+# Default folder for cached pix2face maps (callers may pass their own)
+CACHE_FOLDER = Path.home() / ".cache" / "geograypher_tpu_torch"
+
 EXAMPLE_INTRINSICS = {
     "f": 1000.0,
     "cx": 0.0,

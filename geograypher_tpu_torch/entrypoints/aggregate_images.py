@@ -4,9 +4,9 @@ Port of the single-device path of
 ``geograypher_tpu/entrypoints/aggregate_images.py``:
 MetashapeCameraSet (+ subsetting) -> LookUpSegmentor-wrapped cameras ->
 TexturedMesh.aggregate_projected_images on ``device`` -> per-face argmax,
-NaN for faces no view saw.  Clustered aggregation, ROI cropping, the DTM
-ground relabel and the vector export raise ``NotImplementedError`` naming
-their ROADMAP items.
+NaN for faces no view saw.  Clustered aggregation, the DTM ground relabel
+and the vector export raise ``NotImplementedError`` naming their ROADMAP
+items.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ from geograypher_tpu_torch.utils.files import ensure_containing_folder
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
-from geograypher_tpu_torch.meshes.mesh import TexturedMesh
+from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.ops.aggregate import find_argmax_nonzero_value
+from geograypher_tpu_torch.ops.rasterize import RasterConfig
 
 
 def aggregate_images(
@@ -51,20 +52,21 @@ def aggregate_images(
     predicted_face_classes_savefile: typing.Optional[PATH_TYPE] = None,
     top_down_vector_projection_savefile: typing.Optional[PATH_TYPE] = None,
     vis: bool = False,
+    raster_config: typing.Optional[RasterConfig] = None,
     device="cuda",
 ):
     """Aggregate per-image labels from multiple viewpoints onto the mesh.
 
     Arguments as in ``geograypher_tpu.entrypoints.aggregate_images``;
-    ``device`` is where the per-view work runs.  Returns
+    ``device`` is where the per-view work runs; ``raster_config`` replaces
+    the mesh's default tile-list capacities (a view that overflows them
+    raises after the last view, and larger ``caps`` are the remedy).  Returns
     (predicted_face_classes (F,), average_projections (F, C)).
     """
     if n_aggregation_clusters is not None or n_cameras_per_aggregation_cluster:
         raise NotImplementedError(
             "clustered (chunked) aggregation is not ported yet (ROADMAP A11)"
         )
-    if ROI is not None:
-        raise NotImplementedError("ROI cropping is not ported yet (ROADMAP A6)")
     if DTM_file is not None:
         raise NotImplementedError(
             "the DTM ground relabel is not ported yet (ROADMAP A6)"
@@ -73,7 +75,7 @@ def aggregate_images(
         raise NotImplementedError(
             "the top-down vector export is not ported yet (ROADMAP A6)"
         )
-    del height_above_ground_threshold, ROI_buffer_radius_meters, vis
+    del height_above_ground_threshold, vis
     if isinstance(IDs_to_labels, str):
         with open(IDs_to_labels) as fh:
             IDs_to_labels = {int(k): v for k, v in json.load(fh).items()}
@@ -90,13 +92,18 @@ def aggregate_images(
         camera_set = camera_set.get_subset_by_regex(filename_regex)
     if take_every_nth_camera is not None:
         camera_set = camera_set.get_subset_every_nth(take_every_nth_camera)
+    if ROI is not None:
+        camera_set = camera_set.get_subset_ROI(ROI, ROI_buffer_radius_meters)
 
     mesh = TexturedMesh(
         mesh_file,
         downsample_target=mesh_downsample,
         CRS=mesh_CRS,
         transform_filename=cameras_file,
+        ROI=ROI,
+        ROI_buffer_meters=ROI_buffer_radius_meters,
         IDs_to_labels=IDs_to_labels,
+        raster_config=raster_config or DEFAULT_RASTER_CONFIG,
         device=device,
     )
     if n_classes is None:

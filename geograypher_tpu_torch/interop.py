@@ -1,7 +1,7 @@
 """Carry state across from the JAX package into the port.
 
-This system has no model weights: its state is the mesh, the cameras and
-the raster configuration.  These functions read the JAX objects'
+This system has no model weights: its state is the mesh, its textures,
+the cameras and the raster configuration.  These functions read the JAX objects'
 attributes only (numpy arrays and plain Python values) and import
 nothing from ``geograypher_tpu`` at module level, so the port can be
 held against the JAX package on identical state.
@@ -43,8 +43,9 @@ def raster_config_from_jax(cfg) -> RasterConfig:
 
 def mesh_from_jax(tmesh, device="cuda") -> TexturedMesh:
     """A port TexturedMesh holding a JAX TexturedMesh's geometry, CRS,
-    raster config and face/vertex textures (as numpy).  Its per-view work
-    runs on the card unless ``device="cpu"`` is asked for."""
+    local transform, named mesh scalars, raster config and face/vertex
+    textures (as numpy).  Its per-view work runs on the card unless
+    ``device="cpu"`` is asked for."""
     out = TexturedMesh(
         (np.array(tmesh.verts), np.array(tmesh.faces)),
         IDs_to_labels=tmesh.IDs_to_labels,
@@ -52,6 +53,10 @@ def mesh_from_jax(tmesh, device="cuda") -> TexturedMesh:
         device=device,
     )
     out.CRS = tmesh.CRS
+    t = tmesh._local_transform
+    out._local_transform = None if t is None else np.array(t)
+    out._mesh_attrs = {k: np.array(v) for k, v in
+                       (getattr(tmesh, "_mesh_attrs", None) or {}).items()}
     for name in ("vertex_texture", "face_texture"):
         tex = getattr(tmesh, name)
         setattr(out, name, None if tex is None else np.array(tex))

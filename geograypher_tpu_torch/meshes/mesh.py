@@ -1,15 +1,17 @@
-"""TexturedMesh: the multiview aggregation engine, in PyTorch.
+"""TexturedMesh: the multiview projection engine, in PyTorch.
 
-Port of the aggregation path of ``geograypher_tpu/meshes/mesh.py``.
-Geometry stays float64 numpy on the host (ECEF when georeferenced);
-per-view work runs on ``device`` over float32 triangles in the cameras'
-local frame: camera transform, triangle setup, tile binning, the raster
-kernel and the counts kernel (see ``ops/rasterize.py``).
+Port of the aggregation and render paths of
+``geograypher_tpu/meshes/mesh.py``.  Geometry and textures stay float64
+numpy on the host (ECEF when georeferenced); per-view work runs on
+``device`` over float32 triangles in the cameras' local frame: camera
+transform, triangle setup, tile binning, the raster kernel, then either
+the counts kernel (aggregation, see ``ops/rasterize.py``) or the
+distortion remap and the texture gather (rendering).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): texture loading, ROI cropping, downsampling and export (A6), the
-pix2face / render path with its distortion remap (A13), planned
-aggregation (A7).
+item): raster (GeoTIFF) textures, the DTM ground relabel and the polygon
+exports (A6), planned aggregation (A7), chunked rendering and batched
+views (A11).
 """
 
 from __future__ import annotations
@@ -23,17 +25,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from geograypher_tpu_torch.cameras.core import CameraSet
+from geograypher_tpu_torch.cameras.core import CameraSet, distortion_dict_to_vector
+from geograypher_tpu_torch.cameras.distortion import DistortionEngine, remap_image_torch
 from geograypher_tpu_torch.constants import (
+    CACHE_FOLDER,
     EARTH_CENTERED_EARTH_FIXED_EPSG,
     LAT_LON_EPSG,
     PATH_TYPE,
 )
 from geograypher_tpu_torch.ops.aggregate import (
     accumulate_view,
+    face_to_vert_texture,
     finalize_aggregation,
     init_aggregation,
     project_image_to_faces,
+    render_texture,
+    vert_to_face_discrete,
+    vert_to_face_mean,
 )
 from geograypher_tpu_torch.ops.onehot import onehot_to_class
 from geograypher_tpu_torch.ops.rasterize import (
@@ -44,14 +52,22 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     tri_to_soa,
 )
+from geograypher_tpu_torch.utils import cache as p2f_cache
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils import geometric
 from geograypher_tpu_torch.utils.device import resolve_device
-from geograypher_tpu_torch.utils.meshio import load_mesh
+from geograypher_tpu_torch.utils.files import ensure_containing_folder
+from geograypher_tpu_torch.utils.io import nearest_indices, write_image
+from geograypher_tpu_torch.utils.meshio import load_mesh, save_mesh
 from geograypher_tpu_torch.utils.parsing import (
     crs_from_srs_text,
     parse_metashape_mesh_metadata,
     parse_transform_metashape,
+)
+from geograypher_tpu_torch.utils.vector import (
+    Polygon,
+    VectorData,
+    points_near_polygons,
 )
 
 logger = logging.getLogger(__name__)
@@ -98,10 +114,10 @@ class TexturedMesh:
 
     def __init__(
         self,
-        mesh: typing.Union[PATH_TYPE, tuple],
+        mesh: typing.Union[PATH_TYPE, tuple, "TexturedMesh"],
         downsample_target: float = 1.0,
         transform_filename: typing.Optional[PATH_TYPE] = None,
-        texture=None,
+        texture: typing.Union[None, PATH_TYPE, np.ndarray] = None,
         texture_column_name: typing.Optional[str] = None,
         CRS: typing.Optional[int] = None,
         ROI=None,
@@ -109,46 +125,62 @@ class TexturedMesh:
         IDs_to_labels: typing.Optional[dict] = None,
         shift: typing.Optional[np.ndarray] = None,
         raster_config: RasterConfig = DEFAULT_RASTER_CONFIG,
+        local_to_epsg_4978_transform: typing.Optional[np.ndarray] = None,
         device="cuda",
     ):
-        """Load geometry.
+        """Load geometry + texture.
 
         Args:
-            mesh: a mesh file (.ply/.obj/.npz) or a (verts, faces) tuple.
+            mesh: a mesh file (.ply/.obj/.npz), a (verts, faces) tuple, or
+                another TexturedMesh to share geometry with.
+            downsample_target: fraction of faces to keep (vertex-clustering
+                decimation).
             transform_filename: Metashape camera XML providing the
                 local -> ECEF transform, or mesh-metadata XML with CRS +
                 shift.
+            texture: np array (per-vert or per-face), the name of a
+                per-vertex scalar of the mesh file, a .npy file or a
+                vector file (labels by ``texture_column_name``).
             CRS: EPSG code the mesh vertices are in (None = local frame).
+            ROI: vector data / file / Polygon to crop the mesh to.
             shift: (3,) added to the vertices at load.
             device: where per-view work runs: the card ("cuda", the
                 default; raises when there is none, never falls back to
                 the CPU) or "cpu" when asked for explicitly.
         """
-        if downsample_target != 1.0 or texture is not None or ROI is not None:
-            raise NotImplementedError(
-                "mesh downsampling, textures and ROI cropping are not ported "
-                "yet (ROADMAP A6)"
-            )
-        del texture_column_name, ROI_buffer_meters  # only read with texture/ROI
         self.device = resolve_device(device, "TexturedMesh")
         self.raster_config = raster_config
         self.IDs_to_labels = dict(IDs_to_labels) if IDs_to_labels else None
         self.vertex_texture: typing.Optional[np.ndarray] = None
         self.face_texture: typing.Optional[np.ndarray] = None
         self._tri_cache: dict = {}
+        self._local_transform = None  # set when georeferenced
+        self._mesh_attrs: dict = {}
+        self.distortion_engine = DistortionEngine(self.device)
 
-        if isinstance(mesh, (tuple, list)):
+        if isinstance(mesh, TexturedMesh):
+            self.verts = mesh.verts
+            self.faces = mesh.faces
+            self.CRS = mesh.CRS
+            self._local_transform = mesh._local_transform
+        elif isinstance(mesh, (tuple, list)):
             verts, faces = mesh
             self.verts = np.asarray(verts, dtype=np.float64)
             self.faces = np.asarray(faces, dtype=np.int32)
+            self.CRS = CRS
         else:
             self.verts, self.faces, attrs = load_mesh(mesh)
+            self.CRS = CRS
+            # named per-vertex scalars, for load_texture's
+            # texture-on-the-mesh branch
+            self._mesh_attrs = dict(attrs)
             if "colors" in attrs:
                 self.vertex_texture = attrs["colors"].astype(np.float64)
-        self.CRS = CRS
 
         if transform_filename is not None:
             self._apply_transform_file(transform_filename)
+        if local_to_epsg_4978_transform is not None:
+            self._set_local_transform(np.asarray(local_to_epsg_4978_transform))
         if shift is not None:
             self.verts = self.verts + np.asarray(shift, dtype=np.float64)
         # reproject to the internal ECEF frame when georeferenced
@@ -157,6 +189,13 @@ class TexturedMesh:
                 self.verts, self.CRS, EARTH_CENTERED_EARTH_FIXED_EPSG
             )
             self.CRS = EARTH_CENTERED_EARTH_FIXED_EPSG
+
+        if ROI is not None:
+            self.select_mesh_ROI(ROI, ROI_buffer_meters, inplace=True)
+        if downsample_target < 1.0:
+            self.downsample(downsample_target, inplace=True)
+        if texture is not None:
+            self.load_texture(texture, texture_column_name)
 
     def _apply_transform_file(self, transform_filename: PATH_TYPE):
         transform_filename = Path(transform_filename)
@@ -171,6 +210,7 @@ class TexturedMesh:
             hom = np.concatenate([self.verts, np.ones((len(self.verts), 1))], axis=1)
             self.verts = (t @ hom.T).T[:, :3]
             self.CRS = EARTH_CENTERED_EARTH_FIXED_EPSG
+            self._set_local_transform(t)
             return
         crs_text, shift = parse_metashape_mesh_metadata(transform_filename)
         epsg = crs_from_srs_text(crs_text)
@@ -179,6 +219,9 @@ class TexturedMesh:
         if epsg is not None:
             self.CRS = epsg
 
+    def _set_local_transform(self, t: np.ndarray):
+        self._local_transform = t
+
     @property
     def n_faces(self) -> int:
         return int(self.faces.shape[0])
@@ -186,6 +229,21 @@ class TexturedMesh:
     @property
     def n_verts(self) -> int:
         return int(self.verts.shape[0])
+
+    def get_mesh_hash(self) -> str:
+        """SHA-256 of the vertex and face arrays: the JAX package's digest
+        for the same geometry."""
+        hasher = hashlib.sha256()
+        hasher.update(np.ascontiguousarray(self.verts).tobytes())
+        hasher.update(np.ascontiguousarray(self.faces).tobytes())
+        return hasher.hexdigest()
+
+    def _invalidate_geometry_caches(self) -> None:
+        """Drop every geometry-derived device cache after a geometry edit
+        (crop / sort / downsample): the triangle caches, and the
+        distortion maps kept beside them."""
+        self._tri_cache.clear()
+        self.distortion_engine.clear()
 
     # -- geometry -------------------------------------------------------------
 
@@ -222,7 +280,7 @@ class TexturedMesh:
             self.raster_config,
             global_from=n_regular if n_regular < len(order) else None,
         )
-        self._tri_cache.clear()
+        self._invalidate_geometry_caches()
         return order
 
     def get_verts_in_local_frame(
@@ -279,6 +337,325 @@ class TexturedMesh:
                 self.get_tri_verts_device(cameras, bin_block)
             )
         return self._tri_cache[key]
+
+    # -- geometry edits ---------------------------------------------------
+
+    def select_mesh_ROI(
+        self,
+        ROI,
+        buffer_meters: float = 0.0,
+        inplace: bool = False,
+        default_CRS: typing.Optional[int] = None,
+    ):
+        """Crop to faces whose vertices all fall inside the (buffered) ROI.
+
+        The buffer is an exact distance test
+        (:func:`~geograypher_tpu_torch.utils.vector.points_near_polygons`);
+        the JAX package buffers on a 2048 x 2048 raster grid, so the two
+        may differ on vertices within 2 grid cells of the buffer's edge.
+        Returns (mesh, face mask).
+        """
+        if isinstance(ROI, (str, Path)):
+            ROI = VectorData.read_file(ROI)
+        elif isinstance(ROI, Polygon):
+            ROI = VectorData([ROI], epsg=default_CRS)
+
+        if ROI.epsg is not None and self.CRS is not None:
+            ROI = ROI.ensure_projected()
+            verts2d = crs_utils.transform_points(self.verts, self.CRS, ROI.epsg)[
+                :, :2
+            ]
+        else:
+            verts2d = self.verts[:, :2]
+        polys = [g for g in ROI.geometries if isinstance(g, Polygon)]
+        inside = points_near_polygons(polys, verts2d, buffer_meters)
+        return self._keep_vertices(inside, inplace=inplace)
+
+    def _keep_vertices(self, vert_mask: np.ndarray, inplace: bool):
+        keep_face = vert_mask[self.faces].all(axis=1)
+        return self._keep_faces(keep_face, inplace=inplace)
+
+    def _derived(self, verts: np.ndarray, faces: np.ndarray) -> "TexturedMesh":
+        """A mesh of other geometry with this one's frame, labels, raster
+        configuration and device."""
+        sub = TexturedMesh(
+            (verts, faces),
+            CRS=self.CRS,
+            IDs_to_labels=self.IDs_to_labels,
+            raster_config=self.raster_config,
+            device=self.device,
+        )
+        sub._local_transform = self._local_transform
+        return sub
+
+    def _keep_faces(self, face_mask: np.ndarray, inplace: bool):
+        new_faces = self.faces[face_mask]
+        used = np.zeros(len(self.verts), dtype=bool)
+        used[new_faces.reshape(-1)] = True
+        remap = np.cumsum(used) - 1
+        out_verts = self.verts[used]
+        out_faces = remap[new_faces].astype(np.int32)
+        if inplace:
+            self.verts = out_verts
+            self.faces = out_faces
+            if self.vertex_texture is not None:
+                self.vertex_texture = self.vertex_texture[used]
+            if self.face_texture is not None:
+                self.face_texture = self.face_texture[face_mask]
+            self._invalidate_geometry_caches()
+            return self, face_mask
+        sub = self._derived(out_verts, out_faces)
+        if self.vertex_texture is not None:
+            sub.vertex_texture = self.vertex_texture[used]
+        if self.face_texture is not None:
+            sub.face_texture = self.face_texture[face_mask]
+        return sub, face_mask
+
+    def downsample(self, target: float, inplace: bool = False):
+        """Vertex-clustering decimation to ~``target`` fraction of faces,
+        with KDTree texture transfer."""
+        from scipy.spatial import cKDTree
+
+        # cluster cell size from target face ratio: faces ~ verts * 2 on
+        # meshes; cell count ~ verts * target
+        bbox = self.verts.max(0) - self.verts.min(0)
+        vol = np.prod(np.maximum(bbox[:2], 1e-9)) * max(bbox[2], bbox[:2].mean() * 0.01)
+        n_cells = max(int(self.n_verts * target), 8)
+        cell = (vol / n_cells) ** (1 / 3)
+        keys = np.floor((self.verts - self.verts.min(0)) / cell).astype(np.int64)
+        _, first_idx, inv = np.unique(
+            keys[:, 0] * 73856093 ^ keys[:, 1] * 19349663 ^ keys[:, 2] * 83492791,
+            return_index=True,
+            return_inverse=True,
+        )
+        # representative vertex = centroid of cluster
+        n_new = first_idx.shape[0]
+        sums = np.zeros((n_new, 3))
+        np.add.at(sums, inv, self.verts)
+        counts = np.bincount(inv, minlength=n_new)
+        new_verts = sums / counts[:, None]
+        new_faces = inv[self.faces]
+        nondegenerate = (
+            (new_faces[:, 0] != new_faces[:, 1])
+            & (new_faces[:, 1] != new_faces[:, 2])
+            & (new_faces[:, 0] != new_faces[:, 2])
+        )
+        new_faces = new_faces[nondegenerate].astype(np.int32)
+
+        new_vertex_texture = None
+        if self.vertex_texture is not None:
+            _, nearest = cKDTree(self.verts).query(new_verts)
+            new_vertex_texture = self.vertex_texture[nearest]
+        if inplace:
+            self.verts = new_verts
+            self.faces = new_faces
+            self.vertex_texture = new_vertex_texture
+            self.face_texture = None
+            self._invalidate_geometry_caches()
+            return self
+        sub = self._derived(new_verts, new_faces)
+        sub.vertex_texture = new_vertex_texture
+        return sub
+
+    # -- textures ----------------------------------------------------------
+
+    def set_texture(
+        self,
+        texture_array: np.ndarray,
+        is_vertex: typing.Optional[bool] = None,
+        IDs_to_labels: typing.Optional[dict] = None,
+    ):
+        """Install a texture, inferring vertex- vs face-alignment by
+        length."""
+        texture_array = np.asarray(texture_array, dtype=np.float64)
+        if texture_array.ndim == 1:
+            texture_array = texture_array[:, None]
+        if is_vertex is None:
+            if texture_array.shape[0] == self.n_verts:
+                is_vertex = True
+            elif texture_array.shape[0] == self.n_faces:
+                is_vertex = False
+            else:
+                raise ValueError(
+                    f"Texture length {texture_array.shape[0]} matches neither "
+                    f"verts ({self.n_verts}) nor faces ({self.n_faces})"
+                )
+        if is_vertex:
+            self.vertex_texture = texture_array
+            self.face_texture = None
+        else:
+            self.face_texture = texture_array
+            self.vertex_texture = None
+        if IDs_to_labels is not None:
+            self.IDs_to_labels = dict(IDs_to_labels)
+
+    def _on_device(self, array: np.ndarray, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(array)).to(self.device, dtype)
+
+    def get_texture(
+        self,
+        request_vertex_texture: typing.Optional[bool] = None,
+        try_verts_faces_conversion: bool = True,
+    ) -> typing.Optional[np.ndarray]:
+        """Fetch the texture in the requested alignment, converting (on the
+        mesh's device, in float32) if allowed."""
+        if request_vertex_texture is None:
+            return (
+                self.vertex_texture
+                if self.vertex_texture is not None
+                else self.face_texture
+            )
+        if request_vertex_texture:
+            if self.vertex_texture is not None:
+                return self.vertex_texture
+            if self.face_texture is not None and try_verts_faces_conversion:
+                return face_to_vert_texture(
+                    self._on_device(self.faces, torch.int64),
+                    self._on_device(self.face_texture, torch.float32),
+                    self.n_verts,
+                ).cpu().numpy()
+            return None
+        if self.face_texture is not None:
+            return self.face_texture
+        if self.vertex_texture is not None and try_verts_faces_conversion:
+            return self.vert_to_face_texture()
+        return None
+
+    def vert_to_face_texture(self) -> np.ndarray:
+        """Vertex texture -> face texture: mode vote for discrete data,
+        mean otherwise."""
+        if self.vertex_texture is None:
+            raise ValueError("No vertex texture")
+        tex = self.vertex_texture
+        faces = self._on_device(self.faces, torch.int64)
+        if self.is_discrete_texture(tex):
+            finite = tex[np.isfinite(tex[:, 0]), 0]
+            n_classes = int(finite.max()) + 1 if finite.size else 1
+            out = vert_to_face_discrete(
+                faces, self._on_device(tex[:, 0], torch.float32), n_classes
+            )[:, None]
+        else:
+            out = vert_to_face_mean(faces, self._on_device(tex, torch.float32))
+        return out.cpu().numpy().astype(np.float64)
+
+    @staticmethod
+    def is_discrete_texture(tex: np.ndarray) -> bool:
+        finite = tex[np.isfinite(tex)]
+        return finite.size == 0 or bool(
+            np.allclose(finite, np.round(finite))
+        )
+
+    def load_texture(
+        self,
+        texture: typing.Union[PATH_TYPE, np.ndarray],
+        texture_column_name: typing.Optional[str] = None,
+    ):
+        """Texture loading chain: array -> named mesh scalar -> .npy ->
+        vector file.  Raster files are not ported yet."""
+        if isinstance(texture, np.ndarray):
+            self.set_texture(texture)
+            return
+        # a named per-vertex scalar already on the mesh (a PLY property)
+        if str(texture) in self._mesh_attrs:
+            vals = np.asarray(self._mesh_attrs[str(texture)], dtype=np.float64)
+            self.set_texture(vals, is_vertex=vals.shape[0] == self.n_verts)
+            return
+        path = Path(texture)
+        suffix = path.suffix.lower()
+        if suffix == ".npy":
+            self.set_texture(np.load(path))
+        elif suffix in (".geojson", ".json", ".gpkg", ".shp"):
+            labels, ids_to_labels = self.get_values_for_verts_from_vector(
+                path, texture_column_name
+            )
+            self.set_texture(labels, is_vertex=True, IDs_to_labels=ids_to_labels)
+        elif suffix in (".tif", ".tiff"):
+            self.get_values_for_verts_from_raster(path)
+        else:
+            raise ValueError(f"Cannot load texture from {path}")
+
+    def remap_texture(self, labels_to_IDs: dict):
+        """String/label texture values -> integer IDs.
+
+        Textures are stored numerically (set_texture coerces to float),
+        so string labels resolve through the mesh's current
+        ``IDs_to_labels`` mapping (texture id -> label -> new ID);
+        numeric keys match texture values directly.
+        """
+        tex = self.get_texture()
+        out = np.full_like(tex, np.nan, dtype=np.float64)
+        if any(isinstance(k, str) for k in labels_to_IDs):
+            if not self.IDs_to_labels:
+                raise ValueError(
+                    "remap_texture got string labels but the mesh has no "
+                    "IDs_to_labels mapping to resolve them against"
+                )
+            for old_id, label in self.IDs_to_labels.items():
+                if label in labels_to_IDs:
+                    out[tex == float(old_id)] = labels_to_IDs[label]
+        else:
+            for label, ID in labels_to_IDs.items():
+                out[tex == label] = ID
+        self.set_texture(out)
+        self.IDs_to_labels = {v: k for k, v in labels_to_IDs.items()}
+
+    # -- geospatial sampling ------------------------------------------------
+
+    def get_verts_vector(self, crs: typing.Optional[int] = None) -> VectorData:
+        """Vertices as a point VectorData."""
+        if crs is None and self.CRS is not None:
+            crs = self.get_working_projected_CRS()
+        verts = self.get_vertices_in_CRS(crs)
+        if crs == 4326:
+            pts = [np.array([v[1], v[0]]) for v in verts]  # lon, lat
+        else:
+            pts = [v[:2].copy() for v in verts]
+        return VectorData(pts, {"vert_ID": list(range(len(pts)))}, epsg=crs)
+
+    def get_values_for_verts_from_vector(
+        self,
+        vector: typing.Union[PATH_TYPE, VectorData],
+        column_name: typing.Optional[str] = None,
+    ):
+        """Per-vertex class from polygon containment: (ids (V,) float with
+        NaN outside every polygon, ids_to_labels)."""
+        if not isinstance(vector, VectorData):
+            vector = VectorData.read_file(vector)
+        if self.CRS is not None and vector.epsg is not None:
+            vector = vector.ensure_projected()
+            verts2d = crs_utils.transform_points(
+                self.verts, self.CRS, vector.epsg
+            )[:, :2]
+        else:
+            verts2d = self.verts[:, :2]
+        poly_idx = vector.contains_points(verts2d)
+
+        if column_name is not None and column_name in vector.attributes:
+            col = vector.attributes[column_name]
+            classes = sorted({v for v in col if v is not None}, key=str)
+            label_to_id = {c: i for i, c in enumerate(classes)}
+            ids = np.full(len(verts2d), np.nan)
+            hit = poly_idx >= 0
+            ids[hit] = [
+                label_to_id.get(col[i], np.nan) for i in poly_idx[hit]
+            ]
+            ids_to_labels = {i: c for c, i in label_to_id.items()}
+            return ids, ids_to_labels
+        ids = np.where(poly_idx >= 0, poly_idx.astype(float), np.nan)
+        return ids, {i: i for i in range(len(vector))}
+
+    def get_values_for_verts_from_raster(self, raster_file: PATH_TYPE,
+                                         method: str = "nearest"):
+        raise NotImplementedError(
+            "raster (GeoTIFF) textures are not ported yet (ROADMAP A6): the "
+            f"port has no GeoTIFF reader of its own to sample {raster_file}"
+        )
+
+    def label_ground_class(self, DTM_file: PATH_TYPE, *args, **kwargs):
+        raise NotImplementedError(
+            "the DTM ground relabel is not ported yet (ROADMAP A6): it "
+            "samples a GeoTIFF, which the port cannot read yet"
+        )
 
     # -- rasterization / aggregation ----------------------------------------
 
@@ -346,14 +723,31 @@ class TexturedMesh:
         cls[rows_f] = np.argmax(img[rows_f], axis=-1)
         return cls
 
+    def _distortion_map_device(
+        self, cameras: CameraSet, index: int, image_scale: float
+    ) -> typing.Optional[torch.Tensor]:
+        """The warped->ideal sampling map of a camera's sensor on the
+        mesh's device (None when the sensor is undistorted); built once
+        per sensor and scale and kept by the distortion engine."""
+        sensor = cameras.sensors[cameras.sensor_IDs[index]]
+        dist = sensor.get("distortion_params") or {}
+        if not dist:
+            return None
+        _, w2i = self.distortion_engine.get_maps(
+            sensor["f"],
+            sensor.get("cx", 0.0),
+            sensor.get("cy", 0.0),
+            sensor["image_width"],
+            sensor["image_height"],
+            distortion_dict_to_vector(dist),
+            image_scale,
+        )
+        return w2i
+
     def _rasterize_view(self, cameras, index, scale, apply_distortion, config):
-        """One view's pinhole pix2face on the device and its overflow."""
-        if self._resolve_distortion(cameras, index, apply_distortion):
-            raise NotImplementedError(
-                "pix2face of a distorted sensor (NN remap of the pinhole "
-                "render) is not ported yet (ROADMAP A13); one-hot images "
-                "take the fused path, which handles distortion"
-            )
+        """One view's pix2face on the device and its overflow: the pinhole
+        render and, for a distorted sensor, its nearest-neighbour remap
+        into the real image's geometry."""
         batch = cameras.get_camera_batch([index], image_scale=scale,
                                          device=self.device)
         setup = setup_from_soa(
@@ -364,7 +758,160 @@ class TexturedMesh:
         p2f, binned = rasterize_setup(
             setup, config, batch.image_height, batch.image_width
         )
+        if self._resolve_distortion(cameras, index, apply_distortion):
+            w2i = self._distortion_map_device(cameras, index, scale)
+            if w2i is not None:
+                p2f = remap_image_torch(p2f, w2i, fill_value=-1)
         return p2f, binned.overflow
+
+    @staticmethod
+    def _raise_on_overflow(overflow) -> None:
+        worst = int(overflow)
+        if worst:
+            raise RuntimeError(
+                f"raster capacity overflow: a view dropped {worst} candidate "
+                "entries, so its pix2face is incomplete. Pass a RasterConfig "
+                "with larger caps."
+            )
+
+    def _pix2face_device(
+        self,
+        cameras: CameraSet,
+        index: int,
+        render_img_scale: float = 1.0,
+        apply_distortion: typing.Optional[bool] = None,
+        config: typing.Optional[RasterConfig] = None,
+        save_to_cache: bool = False,
+        cache_folder: typing.Optional[PATH_TYPE] = None,
+    ) -> torch.Tensor:
+        """One camera's pix2face as a tensor on the mesh's device;
+        distortion warping runs there too (default: whenever the sensor
+        is calibrated with distortion).  With caching requested,
+        delegates to the host-side cached path.  Raises if the view's
+        tile lists dropped candidates."""
+        if save_to_cache:
+            return torch.as_tensor(
+                self.pix2face(
+                    cameras, [index], render_img_scale=render_img_scale,
+                    apply_distortion=apply_distortion, config=config,
+                    save_to_cache=True, cache_folder=cache_folder,
+                )[0]
+            ).to(self.device)
+        p2f, overflow = self._rasterize_view(
+            cameras, index, render_img_scale, apply_distortion,
+            config or self.raster_config,
+        )
+        self._raise_on_overflow(overflow)
+        return p2f
+
+    def pix2face(
+        self,
+        cameras: CameraSet,
+        indices: typing.Optional[typing.Sequence[int]] = None,
+        render_img_scale: float = 1.0,
+        apply_distortion: typing.Optional[bool] = None,
+        config: typing.Optional[RasterConfig] = None,
+        save_to_cache: bool = False,
+        cache_folder: typing.Optional[PATH_TYPE] = None,
+    ) -> np.ndarray:
+        """(N, H, W) int32 pixel -> face-id maps for the given cameras, -1
+        where no face is seen.
+
+        ``apply_distortion=None`` (the default) warps whenever the sensor
+        carries distortion parameters; True/False force it.  The warp maps
+        the pinhole render to the real (distorted) image geometry with
+        nearest-neighbor resampling.  ``save_to_cache`` persists maps
+        run-length coded, keyed by (mesh hash, camera hash, scale,
+        distortion flag, config).  Raises after the last view if any
+        view's tile lists dropped candidates; such a map is never cached.
+        """
+        config = config or self.raster_config
+        if indices is None:
+            indices = list(range(len(cameras)))
+        if save_to_cache:
+            cache_folder = cache_folder or CACHE_FOLDER
+            mesh_hash = self.get_mesh_hash()
+        out = []
+        worst = 0
+        for i in indices:
+            distort_i = self._resolve_distortion(cameras, i, apply_distortion)
+            if save_to_cache:
+                cam_hash = cameras.get_subset_cameras([i]).get_camera_hash()
+                # the config is part of the key: maps rendered under other
+                # capacities must not be reused after the user raises caps
+                cache_key = [
+                    mesh_hash, cam_hash, render_img_scale, distort_i,
+                    repr(config),
+                ]
+                cached = p2f_cache.load_pix2face(
+                    "pix2face", cache_key, cache_folder
+                )
+                if cached is not None:
+                    out.append(cached)
+                    continue
+            p2f, overflow = self._rasterize_view(
+                cameras, i, render_img_scale, distort_i, config
+            )
+            p2f = p2f.cpu().numpy()
+            worst = max(worst, int(overflow))
+            if save_to_cache and not int(overflow):
+                p2f_cache.save_pix2face(p2f, "pix2face", cache_key, cache_folder)
+            out.append(p2f)
+        self._raise_on_overflow(worst)
+        return np.stack(out, axis=0)
+
+    def _render_flat_device(self, cameras, render_img_scale, pix2face_kwargs):
+        """Per-camera (H, W, C) float32 rendered texture images on the
+        mesh's device; raises after the last view if any view's tile
+        lists dropped candidates."""
+        face_tex = self.get_texture(
+            request_vertex_texture=False, try_verts_faces_conversion=True
+        )
+        if face_tex is None:
+            raise ValueError("Mesh has no texture to render")
+        tex_dev = self._on_device(face_tex, torch.float32)
+        config = pix2face_kwargs.get("config") or self.raster_config
+        apply_distortion = pix2face_kwargs.get("apply_distortion")
+        worst = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i in range(len(cameras)):
+            if pix2face_kwargs.get("save_to_cache"):
+                p2f = self._pix2face_device(
+                    cameras, i, render_img_scale=render_img_scale,
+                    **pix2face_kwargs,
+                )
+            else:
+                p2f, overflow = self._rasterize_view(
+                    cameras, i, render_img_scale, apply_distortion, config
+                )
+                worst = torch.maximum(worst, overflow)
+            yield render_texture(p2f, tex_dev)
+        self._raise_on_overflow(worst)
+
+    def render_flat(
+        self,
+        cameras: CameraSet,
+        batch_size: int = 1,
+        render_img_scale: float = 1.0,
+        return_camera: bool = False,
+        **pix2face_kwargs,
+    ):
+        """Generator of per-camera rendered texture images, (H, W, C)
+        float32 numpy, NaN where no face is seen (and where the face has
+        no label).  ``pix2face_kwargs``: ``apply_distortion``, ``config``,
+        ``save_to_cache``, ``cache_folder``.  Raises after the last view
+        if any view's tile lists dropped candidates."""
+        if batch_size != 1:
+            raise NotImplementedError(
+                "batched views are not ported yet (ROADMAP A11); the loop "
+                "runs one view at a time, pass batch_size=1"
+            )
+        for i, img in enumerate(self._render_flat_device(
+                cameras, render_img_scale, pix2face_kwargs)):
+            img = img.cpu().numpy()
+            if return_camera:
+                yield img, cameras.get_subset_cameras([i])
+            else:
+                yield img
 
     def project_images(
         self,
@@ -384,7 +931,8 @@ class TexturedMesh:
         with level S on (``config.subtile``) the sub-tile raster first,
         then the raster kernel, then the counts kernel), which rasterizes
         a distorted sensor natively in its distorted pixel space.  Other
-        images keep per-channel means over the pinhole pix2face.  After
+        images keep per-channel means over the view's pix2face (for a
+        distorted sensor the pinhole render remapped into its geometry).  After
         the last view it raises if any view's tile lists dropped
         candidates.
         """
@@ -503,3 +1051,73 @@ class TexturedMesh:
         if return_all:
             additional["all_projections"] = all_projections
         return avg, additional
+
+    # -- saving ---------------------------------------------------------------
+
+    def save_renders(
+        self,
+        cameras: CameraSet,
+        render_image_scale: float = 1.0,
+        output_folder: PATH_TYPE = "renders",
+        make_composites: bool = False,
+        save_native_resolution: bool = True,
+        cast_to_uint8: bool = True,
+        output_extension: str = ".png",
+        **render_kwargs,
+    ):
+        """Render per-camera label masks to disk, one file per camera named
+        after its image.
+
+        A mask is the rendered texture with NaN -> 255, clipped to 0..255
+        and cast to uint8; the cast and, with ``save_native_resolution``
+        at a ``render_image_scale`` other than 1, the nearest-neighbour
+        resize back to the sensor's size run on the mesh's device, so a
+        quarter of the bytes is downloaded.  The files hold what the JAX
+        package's hold, a 3-channel texture in cv2's channel order (the
+        texture's channels reversed) included.  ``output_extension=".npy"``
+        saves the float32 render itself.
+        """
+        if make_composites:
+            raise NotImplementedError(
+                "composite images are not ported yet (ROADMAP A9)"
+            )
+        if output_extension != ".npy" and not cast_to_uint8:
+            raise ValueError(
+                "an image file takes the uint8 mask: pass cast_to_uint8=True, "
+                "or output_extension='.npy' for the float render"
+            )
+        output_folder = Path(output_folder)
+        renders = self._render_flat_device(cameras, render_image_scale, render_kwargs)
+        for i, img in enumerate(renders):
+            fname = cameras.image_filenames[i]
+            rel = Path(fname.name if fname is not None else "render")
+            out_path = (output_folder / rel).with_suffix(output_extension)
+            ensure_containing_folder(out_path)
+            data = img[..., 0] if img.shape[-1] == 1 else img
+            if output_extension != ".npy":
+                data = torch.where(torch.isfinite(data), data, 255.0)
+                data = data.clamp(0, 255).to(torch.uint8)
+                if data.ndim == 3 and data.shape[-1] in (3, 4):
+                    data = data[..., [2, 1, 0, 3][: data.shape[-1]]]
+            if save_native_resolution and render_image_scale != 1.0:
+                sensor = cameras.sensors[cameras.sensor_IDs[i]]
+                rows = torch.as_tensor(nearest_indices(
+                    data.shape[0], sensor["image_height"]), device=self.device)
+                cols = torch.as_tensor(nearest_indices(
+                    data.shape[1], sensor["image_width"]), device=self.device)
+                data = data[rows[:, None], cols[None, :]]
+            write_image(out_path, data.cpu().numpy())
+
+    def save_mesh(self, savepath: PATH_TYPE, write_texture: bool = True):
+        """Write the geometry (and a vertex texture as colours) as PLY."""
+        colors = None
+        if write_texture and self.vertex_texture is not None:
+            t = self.vertex_texture
+            if t.shape[1] >= 3:
+                colors = np.nan_to_num(t[:, :3])
+            else:
+                v = np.nan_to_num(t[:, 0])
+                rng = v.max() - v.min() if v.size else 1.0
+                g = (255 * (v - v.min()) / max(rng, 1e-9)).astype(np.uint8)
+                colors = np.stack([g, g, g], axis=1)
+        save_mesh(savepath, self.verts, self.faces, vert_colors=colors)

@@ -134,3 +134,62 @@ def find_argmax_nonzero_value(
     if keepdims:
         bad = bad.unsqueeze(axis)
     return torch.where(bad, float("nan"), argmax)
+
+
+# ---------------------------------------------------------------------------
+# Vertex <-> face texture conversion (votes)
+# ---------------------------------------------------------------------------
+
+
+def vert_to_face_discrete(
+    faces: torch.Tensor, vert_labels: torch.Tensor, n_classes: int
+) -> torch.Tensor:
+    """Per-face mode of its 3 vertices' integer labels.
+
+    NaN vertex labels don't vote; ties break toward the LOWEST class id.
+    Returns float32 with NaN where no vertex voted.
+    """
+    tri_labels = vert_labels[faces.long()]  # (F, 3)
+    votes = torch.stack(
+        [(tri_labels == c).sum(dim=1) for c in range(n_classes)], dim=1
+    ).to(torch.float32)
+    has_vote = votes.sum(dim=1) > 0
+    # argmax returns the first of equal maxima: the lowest class id
+    winner = torch.argmax(votes, dim=1).to(torch.float32)
+    return torch.where(has_vote, winner, float("nan"))
+
+
+def vert_to_face_mean(faces: torch.Tensor, vert_values: torch.Tensor) -> torch.Tensor:
+    """Per-face nan-mean of its 3 vertices' continuous values."""
+    tri = vert_values[faces.long()]  # (F, 3, C) or (F, 3)
+    if tri.ndim == 2:
+        tri = tri[..., None]
+    finite = torch.isfinite(tri)
+    vals = torch.where(finite, tri, 0.0)
+    s = vals[:, 0] + vals[:, 1] + vals[:, 2]
+    n = finite.sum(dim=1)
+    return torch.where(n > 0, s / torch.clamp(n, min=1), float("nan"))
+
+
+def face_to_vert_texture(
+    faces: torch.Tensor, face_values: torch.Tensor, n_verts: int
+) -> torch.Tensor:
+    """Mean of adjacent faces' values per vertex (``index_add_`` in place
+    of the JAX package's ``segment_sum``).
+
+    The float32 sums run in a fixed order on the CPU.  On the card
+    ``index_add_`` adds atomically in no fixed order, so results there
+    agree with the CPU's to ``rtol=1e-6``, not bit for bit.
+    """
+    if face_values.ndim == 1:
+        face_values = face_values[:, None]
+    vid = faces.reshape(-1).long()
+    vals = face_values.repeat_interleave(3, dim=0)
+    finite = torch.isfinite(vals).all(dim=-1, keepdim=True)
+    sums = torch.zeros((n_verts, vals.shape[1]), dtype=vals.dtype,
+                       device=vals.device)
+    sums.index_add_(0, vid, torch.where(finite, vals, 0.0))
+    counts = torch.zeros((n_verts, 1), dtype=torch.float32, device=vals.device)
+    counts.index_add_(0, vid, finite.to(torch.float32))
+    return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                       float("nan"))

@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 
 from geograypher_tpu_torch.constants import PATH_TYPE
+from geograypher_tpu_torch.utils.io import read_image_or_numpy, resize_nearest
 
 
 class Segmentor:
@@ -70,8 +71,6 @@ class LookUpSegmentor(Segmentor):
         self.lookup_folder = Path(lookup_folder)
 
     def segment_image(self, image, filename=None, image_scale: float = 1.0, **kw):
-        from geograypher_tpu_torch.utils.io import read_image_or_numpy
-
         try:
             rel = Path(filename).relative_to(self.base_folder)
         except ValueError:
@@ -102,10 +101,5 @@ class LookUpSegmentor(Segmentor):
             h = int(round(labels.shape[0] * image_scale))
             w = int(round(labels.shape[1] * image_scale))
         if labels.shape != (h, w):
-            import cv2
-
-            labels = cv2.resize(
-                labels.astype(np.float32), (w, h),
-                interpolation=cv2.INTER_NEAREST,
-            )
+            labels = resize_nearest(labels.astype(np.float32), w, h)
         return self.inds_to_one_hot(labels.astype(float), self.num_classes)

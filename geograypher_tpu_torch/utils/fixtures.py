@@ -244,3 +244,64 @@ def knife_edge_triangles(
     cam[..., 1] = (px[..., 1] - image_h / 2.0) * z
     cam[..., 2] = z
     return cam.astype(np.float32)
+
+
+def make_scene_mesh(
+    n_objects: int = 4, ground_n: int = 25, size: float = 20.0, seed: int = 0
+):
+    """Procedural scene: a ground plane plus boxes at random locations, with
+    per-face integer class labels (ground=0, boxes=1..).
+
+    Returns (verts (V, 3), faces (F, 3), face_labels (F,),
+    object_centers) where each center is (cx, cy, height, half) —
+    ``half`` is the box's true half-extent (its footprint is the
+    2*half x 2*half square), so ground-truth polygons can be exact.
+    """
+    rng = np.random.default_rng(seed)
+    verts, faces = make_grid_mesh(n=ground_n, size=size)
+    labels = [np.zeros((faces.shape[0],), dtype=np.int32)]
+    all_verts = [verts]
+    all_faces = [faces]
+    centers = []
+    v_off = verts.shape[0]
+    for k in range(n_objects):
+        cx_, cy_ = rng.uniform(-size / 3, size / 3, 2)
+        half = rng.uniform(0.5, 1.5)
+        height = rng.uniform(1.0, 3.0)
+        bx, bf = _box_mesh((cx_, cy_, 0.0), half, height)
+        all_verts.append(bx)
+        all_faces.append(bf + v_off)
+        labels.append(np.full((bf.shape[0],), k + 1, dtype=np.int32))
+        centers.append((cx_, cy_, height, half))
+        v_off += bx.shape[0]
+    return (
+        np.concatenate(all_verts, axis=0),
+        np.concatenate(all_faces, axis=0).astype(np.int32),
+        np.concatenate(labels, axis=0),
+        np.array(centers),
+    )
+
+
+def _box_mesh(center, half: float, height: float):
+    cx, cy, z0 = center
+    x0, x1 = cx - half, cx + half
+    y0, y1 = cy - half, cy + half
+    z1 = z0 + height
+    verts = np.array(
+        [
+            [x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0],
+            [x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1],
+        ]
+    )
+    quads = [
+        (4, 5, 6, 7),  # top
+        (0, 1, 5, 4),  # sides
+        (1, 2, 6, 5),
+        (2, 3, 7, 6),
+        (3, 0, 4, 7),
+    ]
+    faces = []
+    for (a, b, c, d) in quads:
+        faces.append((a, b, c))
+        faces.append((a, c, d))
+    return verts, np.array(faces, dtype=np.int32)

@@ -1,20 +1,214 @@
-"""Image / array reading: the port's own copy of ``read_image_or_numpy``
-from ``geograypher_tpu/utils/io.py``."""
+"""Image / array IO: the port's ``read_image_or_numpy`` and ``write_image``
+(``geograypher_tpu/utils/io.py``) on a PNG codec of its own.
+
+The codec needs ``zlib``, ``struct`` and numpy only.  It writes 8-bit
+gray, 8-bit RGB / RGBA and 16-bit gray images, non-interlaced, every row
+with filter type 0 (None), and reads those back, as well as rows of
+filter types 1 (Sub) and 2 (Up).  Any other file (filter types 3 and 4,
+palettes, interlacing, other bit depths, other formats) goes to
+``imageio`` when that is importable; without it the read raises and names
+the file.
+"""
 
 from __future__ import annotations
 
+import struct
+import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from geograypher_tpu_torch.constants import PATH_TYPE
+from geograypher_tpu_torch.utils.files import ensure_containing_folder
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# channels of the PNG colour types the codec handles: gray, RGB,
+# gray + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+#: zlib level of ``write_image``: label masks are long runs, which level 1
+#: already packs to a fraction of a percent, several times faster than 6
+PNG_ZLIB_LEVEL = 1
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload)))
+
+
+def encode_png(image: np.ndarray, level: int = PNG_ZLIB_LEVEL) -> bytes:
+    """The bytes of a PNG file holding ``image``: (H, W) or (H, W, 1)
+    uint8 / uint16 gray, (H, W, 3) uint8 RGB or (H, W, 4) uint8 RGBA.
+    Rows carry filter type 0."""
+    img = np.asarray(image)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.dtype == np.bool_:
+        img = img.astype(np.uint8) * 255
+    if img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        color_type = 0
+    elif img.ndim == 3 and img.shape[2] in (3, 4) and img.dtype == np.uint8:
+        color_type = 2 if img.shape[2] == 3 else 6
+    else:
+        raise ValueError(
+            f"cannot write a {img.dtype} array of shape {img.shape} as PNG: "
+            "supported are uint8/uint16 (H, W) and uint8 (H, W, 3|4)"
+        )
+    h, w = img.shape[:2]
+    depth = 8 * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">")))
+    rows = rows.view(np.uint8).reshape(h, -1)
+    raw = np.empty((h, rows.shape[1] + 1), np.uint8)
+    raw[:, 0] = 0  # filter type None
+    raw[:, 1:] = rows
+    header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
+    return (PNG_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def decode_png(data: bytes) -> Optional[np.ndarray]:
+    """The image of a PNG file's bytes, or None when the file uses what
+    the codec does not read (a palette, interlacing, a bit depth other
+    than 8 or 16, filter types 3 or 4).  Raises ``ValueError`` for bytes
+    that are not a PNG file at all."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        payload = data[pos + 8: pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"IDAT":
+            idat.append(payload)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG file without a header")
+    w, h, depth, color_type, _, _, interlace = header
+    if color_type not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
+        return None
+    channels = _PNG_CHANNELS[color_type]
+    bpp = channels * depth // 8  # bytes per pixel
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError("PNG data does not match its header")
+    raw = raw.reshape(h, 1 + w * bpp)
+    filters = raw[:, 0]
+    if (filters > 2).any():
+        return None
+    rows = raw[:, 1:].copy()
+    if filters.any():
+        pixels = rows.reshape(h, w, bpp)
+        for y in np.flatnonzero(filters):
+            if filters[y] == 1:  # Sub: each byte adds the pixel to its left
+                np.cumsum(pixels[y], axis=0, dtype=np.uint8, out=pixels[y])
+            elif y:  # Up: each byte adds the one above (zeros above row 0)
+                rows[y] += rows[y - 1]
+    out = rows.view(np.dtype(">u2") if depth == 16 else np.uint8)
+    out = out.astype(np.uint16 if depth == 16 else np.uint8)
+    return out.reshape(h, w) if channels == 1 else out.reshape(h, w, channels)
 
 
 def read_image_or_numpy(filename: PATH_TYPE) -> np.ndarray:
-    """Read an image file or .npy array (reference io.py)."""
+    """Read an image file or .npy array.  PNG files go through the port's
+    own decoder; what it does not read goes to ``imageio`` when that is
+    installed."""
     filename = Path(filename)
-    if filename.suffix.lower() == ".npy":
+    suffix = filename.suffix.lower()
+    if suffix == ".npy":
         return np.load(filename)
-    import imageio.v3 as iio
-
+    if suffix == ".png":
+        image = decode_png(filename.read_bytes())
+        if image is not None:
+            return image
+    try:
+        import imageio.v3 as iio
+    except ImportError:
+        raise ValueError(
+            f"cannot read {filename}: the built-in decoder reads non-interlaced "
+            "8/16-bit gray, RGB and RGBA PNG files of filter types 0-2, and "
+            "imageio is not installed for anything else"
+        ) from None
     return np.asarray(iio.imread(filename))
+
+
+def write_image(filename: PATH_TYPE, image: np.ndarray,
+                level: int = PNG_ZLIB_LEVEL) -> int:
+    """Write ``image`` as .npy or .png (see :func:`encode_png` for the
+    array kinds a PNG takes); returns the number of bytes written."""
+    filename = ensure_containing_folder(filename)
+    suffix = filename.suffix.lower()
+    if suffix == ".npy":
+        np.save(filename, image)
+        return filename.stat().st_size
+    if suffix != ".png":
+        raise ValueError(f"cannot write {filename}: only .png and .npy are written")
+    data = encode_png(image, level)
+    filename.write_bytes(data)
+    return len(data)
+
+
+def resize_nearest(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Nearest-neighbour resize by an index gather, pixel for pixel what
+    ``cv2.resize(image, (width, height), interpolation=cv2.INTER_NEAREST)``
+    gives: ``src = min(floor(dst * src_size / dst_size), src_size - 1)``."""
+    image = np.asarray(image)
+    rows = nearest_indices(image.shape[0], height)
+    cols = nearest_indices(image.shape[1], width)
+    return image[rows[:, None], cols[None, :]]
+
+
+def nearest_indices(src_size: int, dst_size: int) -> np.ndarray:
+    """(dst_size,) source index of every destination index of a
+    nearest-neighbour resize."""
+    scale = src_size / dst_size
+    idx = np.floor(np.arange(dst_size) * scale).astype(np.int64)
+    return np.minimum(idx, src_size - 1)
+
+
+def _area_taps(src_size: int, dst_size: int):
+    """(indices, weights), each (dst_size, K): the source pixels every
+    destination pixel of an area-averaging downscale covers, and the
+    share of its cell each takes."""
+    scale = src_size / dst_size
+    lo = np.arange(dst_size) * scale
+    hi = np.minimum(lo + scale, src_size)
+    first = np.floor(lo).astype(np.int64)
+    taps = int(np.ceil(scale)) + 1
+    idx = first[:, None] + np.arange(taps)[None, :]
+    cover = np.minimum(idx + 1, hi[:, None]) - np.maximum(idx, lo[:, None])
+    weights = np.clip(cover, 0.0, None) / (hi - lo)[:, None]
+    return np.minimum(idx, src_size - 1), weights.astype(np.float32)
+
+
+def resize_area(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Downscale by area averaging: every destination pixel is the mean
+    of the source area it covers, fractional pixels weighted by their
+    share (what ``cv2.resize(..., interpolation=cv2.INTER_AREA)`` computes
+    when it shrinks an image; uint8 results agree to +-1).  Integer
+    images are rounded back to their dtype.  Enlarging is not supported.
+    """
+    image = np.asarray(image)
+    h, w = image.shape[:2]
+    if width > w or height > h:
+        raise ValueError(
+            f"resize_area shrinks images: {w}x{h} to {width}x{height} enlarges one"
+        )
+    out = image.astype(np.float32)
+    for axis, (src, dst) in enumerate(((h, height), (w, width))):
+        if src == dst:
+            continue
+        idx, weights = _area_taps(src, dst)
+        shape = [1] * out.ndim
+        shape[axis] = dst
+        acc = 0.0
+        for k in range(idx.shape[1]):
+            acc = acc + np.take(out, idx[:, k], axis=axis) * weights[:, k].reshape(shape)
+        out = acc
+    if np.issubdtype(image.dtype, np.integer):
+        info = np.iinfo(image.dtype)
+        return np.clip(np.rint(out), info.min, info.max).astype(image.dtype)
+    return out.astype(image.dtype) if image.dtype == np.float64 else out

@@ -1,7 +1,8 @@
-"""Mesh file loading: PLY (ASCII + binary), OBJ and .npz, numpy-native.
+"""Mesh file IO: PLY (ASCII + binary), OBJ and .npz, numpy-native.
 
-The port's own copy of ``load_mesh`` from ``geograypher_tpu/utils/meshio.py``
-and the readers it calls.  The JAX package's optional C++ PLY reader is not
+The port's own copy of ``load_mesh`` and ``save_mesh`` from
+``geograypher_tpu/utils/meshio.py`` and the readers and the PLY writer
+they call.  The JAX package's optional C++ PLY reader is not
 carried over: the numpy readers here define the same format semantics.
 """
 
@@ -9,11 +10,12 @@ from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from geograypher_tpu_torch.constants import PATH_TYPE
+from geograypher_tpu_torch.utils.files import ensure_containing_folder
 
 _PLY_DTYPES = {
     "char": "i1", "int8": "i1",
@@ -54,6 +56,23 @@ def load_mesh(
             attrs,
         )
     raise ValueError(f"Unsupported mesh format: {suffix}")
+
+
+def save_mesh(
+    filename: PATH_TYPE,
+    verts: np.ndarray,
+    faces: np.ndarray,
+    vert_colors: Optional[np.ndarray] = None,
+    binary: bool = True,
+) -> None:
+    """Save a triangle mesh as PLY (or .npz)."""
+    filename = ensure_containing_folder(filename)
+    if filename.suffix.lower() == ".npz":
+        np.savez(filename, verts=verts, faces=faces)
+        return
+    if filename.suffix.lower() != ".ply":
+        raise ValueError(f"Unsupported save format: {filename.suffix}")
+    _save_ply(filename, verts, faces, vert_colors, binary=binary)
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +259,62 @@ def _load_ply_ascii(fh, elements):
     if faces is None:
         faces = np.zeros((0, 3), np.int32)
     return _extract(verts_rec, faces)
+
+
+def _save_ply(filename, verts, faces, vert_colors=None, binary=True):
+    verts = np.asarray(verts)
+    faces = np.asarray(faces, dtype=np.int32)
+    has_color = vert_colors is not None
+    header = ["ply"]
+    header.append(
+        "format binary_little_endian 1.0" if binary else "format ascii 1.0"
+    )
+    header += [
+        f"element vertex {len(verts)}",
+        "property double x",
+        "property double y",
+        "property double z",
+    ]
+    if has_color:
+        header += [
+            "property uchar red",
+            "property uchar green",
+            "property uchar blue",
+        ]
+    header += [
+        f"element face {len(faces)}",
+        "property list uchar int vertex_indices",
+        "end_header",
+    ]
+    with open(filename, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode("ascii"))
+        if binary:
+            if has_color:
+                dt = np.dtype(
+                    [("x", "<f8"), ("y", "<f8"), ("z", "<f8"),
+                     ("r", "u1"), ("g", "u1"), ("b", "u1")]
+                )
+                rec = np.zeros(len(verts), dtype=dt)
+                rec["x"], rec["y"], rec["z"] = verts.T
+                colors = np.asarray(vert_colors).astype(np.uint8)
+                rec["r"], rec["g"], rec["b"] = colors[:, :3].T
+                fh.write(rec.tobytes())
+            else:
+                fh.write(verts.astype("<f8").tobytes())
+            fdt = np.dtype([("n", "u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")])
+            frec = np.zeros(len(faces), dtype=fdt)
+            frec["n"] = 3
+            frec["a"], frec["b"], frec["c"] = faces.T
+            fh.write(frec.tobytes())
+        else:
+            for i, v in enumerate(verts):
+                line = f"{v[0]} {v[1]} {v[2]}"
+                if has_color:
+                    c = np.asarray(vert_colors[i]).astype(int)
+                    line += f" {c[0]} {c[1]} {c[2]}"
+                fh.write((line + "\n").encode())
+            for f in faces:
+                fh.write(f"3 {f[0]} {f[1]} {f[2]}\n".encode())
 
 
 def _load_obj(filename: Path):

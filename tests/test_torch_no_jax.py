@@ -1,7 +1,8 @@
 """The port and chip_smoke.py import no JAX and nothing of the JAX
-package: the machine with the card has no jax (nor cv2, PIL or pandas),
-and the port keeps its own copies of the host helpers it needs.  Checked
-in subprocesses, because tests/conftest.py imports jax into this one."""
+package: the machine with the card has no jax (nor cv2, PIL or pandas,
+and is not said to have imageio or sklearn), and the port keeps its own
+copies of the host helpers it needs.  Checked in subprocesses, because
+tests/conftest.py imports jax into this one."""
 
 import os
 import re
@@ -41,6 +42,8 @@ names = ["chip_smoke"] + [
         geograypher_tpu_torch.__path__, "geograypher_tpu_torch.")
 ]
 assert "geograypher_tpu_torch.ops.onehot" in names, names
+assert "geograypher_tpu_torch.entrypoints.render_labels" in names, names
+assert "geograypher_tpu_torch.utils.vector" in names, names
 for name in names:
     importlib.import_module(name)
 assert not loaded(*REFUSED), loaded(*REFUSED)
@@ -53,7 +56,8 @@ print(len(names))
 # images down the means path) and the streaming aggregation, with level S
 # off and on
 CHIP_PATH = REFUSE + r"""
-REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas")
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn")
 refuse(*REFUSED)
 import numpy as np
 import chip_smoke as cs
@@ -101,6 +105,48 @@ print("ok")
 """
 
 
+# chip_smoke.py's phase 5 at a tiny size on CPU tensors, with the same
+# modules refused: the survey written to disk (PLY, Metashape XML with
+# three sensors, GeoJSON), ``render_labels`` with every check of the masks
+# (PNG through the port's own codec, the plain re-runs, the cache), and
+# the round trip through ``aggregate_images``
+RENDER_PATH = REFUSE + r"""
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn")
+refuse(*REFUSED)
+import tempfile
+import numpy as np
+import chip_smoke as cs
+
+verts, faces = cs.make_grid_mesh(n=21, size=4.0,
+                                 z_fn=lambda x, y: 0.1 * np.sin(3 * x))
+w, h = 96, 64
+c2ws = [cs.nadir_camera(4.0, 40.0, w),
+        cs.oblique_camera(4.0, 45.0, w, pitch_deg=25.0),
+        cs.nadir_camera(4.0, 45.0, w)]
+c2ws[0][:3, 3] += (0.013, -0.021, 0.0)
+sensors = {0: {"f": 40.0, "image_width": w, "image_height": h},
+           1: {"f": 45.0, "image_width": w, "image_height": h},
+           2: {"f": 45.0, "cx": 0.5, "cy": -0.5, "image_width": w,
+               "image_height": h,
+               "distortion_params": {"k1": 0.02, "k2": -0.01, "p1": 1e-3}}}
+cfg = cs.RasterConfig(caps=(512, 128, 64, 64))
+with tempfile.TemporaryDirectory() as folder:
+    survey = cs._write_survey(folder, verts, faces, c2ws, sensors, [0, 1, 2], w, h)
+    mesh, cams, launches, fields = cs._render_checked(survey, cfg, device="cpu")
+    assert fields["plain_rerun_views"] == [0, 2] and fields["overflow"] == 0
+    assert mesh.n_faces == len(faces) and len(cams) == 3
+    assert sorted(mesh.IDs_to_labels.values()) == list(cs.SPECIES)
+    assert 0.3 < fields["labelled_vertex_share"] < 0.7
+    trip = cs._round_trip(survey, mesh, cfg, device="cpu", min_agree=0.95)
+    assert trip["observed_and_labelled"] > 0.3 * len(faces)
+# CPU tensors take the plain versions
+assert not any(launches.values()), launches
+assert not loaded(*REFUSED), loaded(*REFUSED)
+print("ok")
+"""
+
+
 def run(code):
     # one intra-op thread: the tiny tensors gain nothing from more, and
     # parallel test workers would oversubscribe the cores
@@ -111,9 +157,12 @@ def run(code):
 
 
 def test_no_port_file_imports_the_jax_package():
-    """A source scan: no import of ``geograypher_tpu`` (or jax) in any
-    file of the port or in chip_smoke.py, at module level or lazily."""
-    pattern = re.compile(r"^\s*(from|import)\s+(geograypher_tpu|jax)([.\s]|$)")
+    """A source scan: no import of ``geograypher_tpu`` (or jax, cv2, PIL,
+    pandas, sklearn) in any file of the port or in chip_smoke.py, at
+    module level or lazily; ``imageio`` only in the guarded fallback of
+    ``utils/io.py``."""
+    pattern = re.compile(r"^\s*(from|import)\s+"
+                         r"(geograypher_tpu|jax|cv2|PIL|pandas|sklearn)([.\s]|$)")
     files = sorted((ROOT / "geograypher_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 25
@@ -122,18 +171,30 @@ def test_no_port_file_imports_the_jax_package():
            for i, line in enumerate(f.read_text().splitlines(), 1)
            if pattern.match(line)]
     assert not bad, bad
+    uses_imageio = [str(f.relative_to(ROOT)) for f in files
+                    if re.search(r"^\s*(from|import)\s+imageio", f.read_text(), re.M)]
+    assert uses_imageio == ["geograypher_tpu_torch/utils/io.py"]
+    io_source = (ROOT / "geograypher_tpu_torch/utils/io.py").read_text()
+    assert re.search(r"try:\n\s+import imageio.v3 as iio\n\s+except ImportError:",
+                     io_source)
 
 
 def test_port_and_chip_smoke_import_no_jax():
     out = run(IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    assert int(out.stdout.strip()) >= 35  # every module was imported
 
 
 def test_chip_smoke_path_needs_nothing_of_the_jax_package():
     out = run(CHIP_PATH)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_render_path_needs_nothing_of_the_jax_package():
+    out = run(RENDER_PATH)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

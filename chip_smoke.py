@@ -54,7 +54,20 @@ Phases (each prints one line; any failure raises and exits nonzero):
    encode and write at zlib levels 1 and 6); ``"5c"``, the round trip:
    ``aggregate_images`` reads the rendered folder back and the predicted
    class of the observed, labelled faces must be the mesh's face texture
-   for at least ``ROUND_TRIP_MIN_AGREE`` of them.
+   for at least ``ROUND_TRIP_MIN_AGREE`` of them; 8 4K views take the
+   planned route (printed);
+6. planned aggregation (``parallel/planner.py``) over phase 3's 8 views at
+   the bench's binning configuration (``bin_block=8, l0_window=(5, 2)``)
+   and the library's default caps: the pooled counts equal the streaming
+   chain's per-view counts summed, the planned route of
+   ``aggregate_projected_images`` (one-hot scan on the card, int8 class
+   images) its mean (view counts exactly, the mean to 1e-6), with one
+   launch per view and kernel (no retry); a plan forced to caps (16, 16,
+   16, 16) ends equal after its retry; it prints the census time, the
+   buckets, views/s of the route, of int class images from a provider,
+   and of one bucket against four; ``"6m"``: the means path (a soft image)
+   twice on a pinhole and a distorted view, bit for bit, and the
+   ``face_sums`` kernel against its plain version on view 0.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -76,6 +89,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import math
 import os
 import statistics
@@ -94,8 +108,8 @@ from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
 from geograypher_tpu_torch.entrypoints.render_labels import render_labels
 from geograypher_tpu_torch.kernels import build
-from geograypher_tpu_torch.meshes.mesh import TexturedMesh, _PinnedUpload
-from geograypher_tpu_torch.ops import face_counts, onehot, raster_tiles, subtile
+from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
+from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
 from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
 from geograypher_tpu_torch.ops.aggregate import (
     accumulate_view,
@@ -115,7 +129,9 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     setup_triangles,
 )
+from geograypher_tpu_torch.parallel import planner
 from geograypher_tpu_torch.utils import crs as crs_utils
+from geograypher_tpu_torch.utils.device import PinnedUpload
 from geograypher_tpu_torch.utils.example_data import (
     local_to_ecef_frame,
     make_metashape_xml,
@@ -163,6 +179,12 @@ TPU_KERNELS = {
 # the host scan the one-hot kernel took over (both packages ran it in numpy)
 ONEHOT_REPLACES = ("none: host numpy `_as_class_image`, "
                    "geograypher_tpu/meshes/mesh.py:1015")
+# the per-face float sum of the means path: an XLA op in the JAX package
+FACE_SUMS_REPLACES = ("none: XLA `segment_sum`, geograypher_tpu/ops/aggregate.py:76 "
+                      "(the port's `index_add` before it)")
+# phase 6: the planned mean against the streaming one (the same per-view
+# means, summed in bucket order instead of view order)
+PLANNED_MEAN_RTOL = 1e-6
 
 
 class ImageSegmentor:
@@ -467,7 +489,7 @@ def _kernel_vs_plain(name, setup, cfg, n_faces, cls, cls_piecewise=None):
         raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
             planes, bbox, cand, counts, cfg, H, W)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
-            planes, cand, counts, cfg, H, W)),
+            planes, cand, counts, cfg, H, W), runs=3),
         **counts_row,
         raster_cand_pixels=cand_pixels, raster_tile_cand_pixels=tile_pixels,
         raster_need_pixels=need_pixels,
@@ -526,7 +548,7 @@ def _s_kernels_vs_plain(name, setup, cfg, n_faces, cls):
         raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
             planes, bbox, cand, counts, cfg, H, W, s_init=s_init)),
         raster_plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
-            planes, cand, counts, cfg, H, W, s_init=s_init)),
+            planes, cand, counts, cfg, H, W, s_init=s_init), runs=3),
         **counts_row,
         s_cand_pixels=s_cand_pixels, s_subtile_cand_pixels=s_sub_pixels,
         raster_cand_pixels=r_cand_pixels, raster_tile_cand_pixels=r_tile_pixels,
@@ -658,7 +680,7 @@ def _label_stage_times(seg_cams, dev):
     t1 = time.perf_counter()
     TexturedMesh._as_class_image(img)
     t2 = time.perf_counter()
-    upload = _PinnedUpload(dev)
+    upload = PinnedUpload(dev)
     img_dev = upload(img)
     return dict(host_segment_s=round(t1 - t0, 4), host_class_image_s=round(t2 - t1, 4),
                 h2d_onehot_ms=_cuda_ms(lambda: upload(img)),
@@ -865,7 +887,8 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    avg, info = mesh.aggregate_projected_images(seg_cams)
+    # the streaming loop (8 4K views would route to the planner: phase 6)
+    avg, info = mesh.aggregate_projected_images(seg_cams, use_planned=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"raster_tiles": raster_tiles.launches,
@@ -956,7 +979,7 @@ def main():
     # where one view's device time goes: each stage of the fused chain
     # timed alone with CUDA events (launch gaps included)
     cls_host = cls0.cpu()
-    upload = _PinnedUpload(dev)
+    upload = PinnedUpload(dev)
     state = init_aggregation(n_faces, N_CLASSES, dev)
     for i in (0, 1, 6):
         b = cams.get_camera_batch([i], device=dev)
@@ -1023,12 +1046,16 @@ def main():
     _line("setup_r", census=census_r, caps=list(caps_r))
     launches_r, launches_back = _render_phase(
         verts, faces, c2ws, sensors, sensor_ids, RasterConfig(caps=caps_r), smi)
+    # -- phase 6: planned aggregation; 6m: the means path ----------------------
+    launches_p, _ = _planned_phase(mesh, cams, seg_cams, labels, N_CLASSES, smi)
+    launches_m, sums_row = _means_phase(mesh, cams, H, W, N_CLASSES, smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
 
     # one line per kernel: launches are the main paths' (phase 3, the
-    # level-S path, and phase 5's two entry points); times and bounds are the kernel-vs-plain views at the
-    # main path's configuration (phase 2's first two views; level S: its
-    # two views at the S configuration)
+    # level-S path, phase 5's two entry points, phase 6's planned route and
+    # phase 6m's first means run); times and bounds are the kernel-vs-plain
+    # views at the main path's configuration (phase 2's first two views;
+    # level S: its two views at the S configuration; face_sums: view 0)
     def mean(rs, key):
         values = [r[key] for r in rs]
         return None if None in values else statistics.mean(values)
@@ -1040,7 +1067,8 @@ def main():
              source="geograypher_tpu_torch/csrc/raster_tiles.cu",
              replaces=TPU_KERNELS["B1"],
              launches=(launches["raster_tiles"] + launches_s["raster_tiles"]
-                       + launches_r["raster_tiles"] + launches_back["raster_tiles"]),
+                       + launches_r["raster_tiles"] + launches_back["raster_tiles"]
+                       + launches_p["raster_tiles"] + launches_m["raster_tiles"]),
              max_abs_err=max(r["raster_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "raster_ms"),
              plain_ms=mean(main_rows, "raster_plain_ms"),
@@ -1051,7 +1079,8 @@ def main():
              replaces=", ".join(TPU_KERNELS[k] for k in ("B2", "B3", "B4", "B6")),
              launches=(launches["face_class_counts"]
                        + launches_s["face_class_counts"]
-                       + launches_back["face_class_counts"]),
+                       + launches_back["face_class_counts"]
+                       + launches_p["face_class_counts"]),
              max_abs_err=max(r["counts_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "counts_ms"),
              plain_ms=mean(main_rows, "counts_plain_ms"),
@@ -1080,13 +1109,20 @@ def main():
              source="geograypher_tpu_torch/csrc/onehot_class.cu",
              replaces=ONEHOT_REPLACES,
              launches=(launches["onehot_class"] + launches_s["onehot_class"]
-                       + launches_back["onehot_class"]),
+                       + launches_back["onehot_class"] + launches_p["onehot_class"]
+                       + launches_m["onehot_class"]),
              max_abs_err=onehot_row["max_abs_err"], ms=onehot_row["float32"]["ms"],
              plain_ms=onehot_row["float32"]["plain_ms"],
              bound_ms=onehot_row["float32"]["bound_ms"], bound_by="bytes",
              library_ms=None, float64_ms=onehot_row["float64"]["ms"],
              float64_plain_ms=onehot_row["float64"]["plain_ms"],
              float64_bound_ms=onehot_row["float64"]["bound_ms"]),
+        dict(name="face_sums", route="cuda",
+             source="geograypher_tpu_torch/csrc/face_sums.cu",
+             replaces=FACE_SUMS_REPLACES, launches=launches_m["face_sums"],
+             max_abs_err=sums_row["max_abs_err"], ms=sums_row["ms"],
+             plain_ms=sums_row["plain_ms"], bound_ms=sums_row["bound_ms"],
+             bound_by=sums_row["bound_by"], library_ms=sums_row["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1136,7 +1172,8 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
     onehot.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    avg_s, info_s = mesh.aggregate_projected_images(seg_cams, config=cfg_s)
+    avg_s, info_s = mesh.aggregate_projected_images(seg_cams, config=cfg_s,
+                                                    use_planned=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {"raster_tiles": raster_tiles.launches,
@@ -1245,6 +1282,207 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
               s_census=subtile.subtile_counts_census(s_i, cfg_s, H, W).tolist(),
               card=smi)
     return rows, launches
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_launches():
+    raster_tiles.launches = face_counts.launches = subtile.launches = 0
+    onehot.launches = face_sums.launches = 0
+
+
+def _launches():
+    return {"raster_tiles": raster_tiles.launches,
+            "face_class_counts": face_counts.launches,
+            "s_raster": subtile.launches, "onehot_class": onehot.launches,
+            "face_sums": face_sums.launches}
+
+
+def _timed(dev, fn):
+    """(result, seconds) of ``fn()`` ended by a synchronise."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def _planned_phase(mesh, cams, seg_cams, labels, n_classes, card=None,
+                   forced_caps=(16, 16, 16, 16)):
+    """Phase 6: planned aggregation at the bench's binning configuration
+    (``bin_block=8, l0_window=(5, 2)``) and the library's DEFAULT caps.
+
+    The pooled counts (``aggregate_class_images_planned``) must equal the
+    streaming chain's per-view counts summed at the plan's census-sized
+    caps, and the planned route of ``aggregate_projected_images`` (the
+    one-hot scan on the device, int8 class images, the weighted planner)
+    the streaming mean: view counts exactly, the mean to
+    ``PLANNED_MEAN_RTOL``, NaN on the same faces.  Neither may raise or
+    retry (launches exactly one per view).  A plan forced to ``forced_caps``
+    must end equal after its retry.  Returns (the route's launches, fields
+    of the phase line)."""
+    dev = mesh.device
+    n = len(cams)
+    cfg = dataclasses.replace(DEFAULT_RASTER_CONFIG, bin_block=8, l0_window=(5, 2),
+                              global_from=mesh.raster_config.global_from)
+    _reset_launches()
+    (counts, plan), pooled_s = _timed(dev, lambda: mesh.aggregate_class_images_planned(
+        cams, n_classes, labels=labels, config=cfg))
+    pooled_launches = _launches()
+    k = int(torch.device(dev).type == "cuda")  # CPU tensors launch nothing
+    want = {"raster_tiles": n * k, "face_class_counts": n * k, "s_raster": 0,
+            "onehot_class": 0, "face_sums": 0}
+    if pooled_launches != want:
+        raise RuntimeError(f"planned pooled run: launches {pooled_launches}, "
+                           f"expected {want} (a retry or a stray path)")
+    # the streaming chain at the plan's census-sized caps, on the same views
+    cover = plan.cover_config
+    pooled_ref = torch.zeros((mesh.n_faces, n_classes), device=dev)
+    state = init_aggregation(mesh.n_faces, n_classes, dev)
+    for sums, cnt in mesh.project_images(seg_cams, config=cover):
+        pooled_ref += sums
+        state = accumulate_view(state, sums, cnt)
+    if not np.array_equal(counts, pooled_ref.cpu().numpy()):
+        raise RuntimeError(
+            "planned pooled counts differ from the streaming chain's in "
+            f"{int((counts != pooled_ref.cpu().numpy()).sum())} elements")
+    ref_avg = finalize_aggregation(state).cpu().numpy()
+    ref_count = state.view_count.cpu().numpy()
+    del pooled_ref, state
+    # the main path of the phase: the planned route, from one-hot images
+    _reset_launches()
+    (avg, info), route_s = _timed(dev, lambda: mesh.aggregate_projected_images(
+        seg_cams, use_planned=True, config=cfg))
+    launches = _launches()
+    want = dict(want, onehot_class=n * k)
+    if launches != want or "plan" not in info:
+        raise RuntimeError(f"planned route: launches {launches}, expected {want}")
+    if not np.array_equal(info["projection_counts"], ref_count):
+        raise RuntimeError("planned route: view counts differ from streaming")
+    if not np.array_equal(np.isnan(avg), np.isnan(ref_avg)):
+        raise RuntimeError("planned route: NaN on other faces than streaming")
+    seen = ref_count > 0
+    rel = float(np.max(np.abs(avg[seen] - ref_avg[seen])
+                       / np.maximum(np.abs(ref_avg[seen]), 1e-30)))
+    if not np.allclose(avg, ref_avg, rtol=PLANNED_MEAN_RTOL, atol=1e-7,
+                       equal_nan=True):
+        raise RuntimeError(f"planned route: mean off streaming by rtol {rel}")
+    # the same views' labels as int class images from a provider
+    _, provider_s = _timed(dev, lambda: mesh.aggregate_projected_images_planned(
+        cams, n_classes, class_image_provider=lambda i: labels[i], config=cfg))
+    # a plan whose caps every view overflows: gated, re-censused, re-run
+    tri_soa, params, host_labels, h, w, use_dist, _, _ = mesh._planned_inputs(
+        cams, n_classes, None, 1.0, cfg, None, 4, None, labels)
+    forced = dataclasses.replace(plan, buckets=(planner.BucketPlan(
+        dataclasses.replace(cfg, caps=tuple(forced_caps)), tuple(range(n))),))
+    agg = planner.PlannedAggregator(forced, n_classes)
+    agg.prepare(tri_soa, params, host_labels)
+    agg.run()
+    forced_counts = agg.finalize()[: mesh.n_faces]
+    if agg.resizes < 1 or not np.array_equal(forced_counts, counts):
+        raise RuntimeError(f"forced plan: {agg.resizes} resizes, equal "
+                           f"{np.array_equal(forced_counts, counts)}")
+    # run + finalize at one bucket against four: a warm-up each, then
+    # turns 1, 4, 4, 1
+    runs, rates = {}, {1: [], 4: []}
+    for mb in (1, 4):
+        runs[mb] = planner.PlannedAggregator(planner.plan_aggregation(
+            tri_soa, params, cfg, h, w, tri_soa.shape[1], use_dist=use_dist,
+            max_buckets=mb), n_classes)
+        runs[mb].prepare(tri_soa, params, host_labels)
+    for mb in (1, 4, 1, 4, 4, 1):
+
+        def go(agg=runs[mb]):
+            agg.run()
+            return agg.finalize()
+
+        out, sec = _timed(dev, go)
+        if not np.array_equal(out[: mesh.n_faces], counts):
+            raise RuntimeError(f"max_buckets={mb}: counts differ")
+        rates[mb].append(n / sec)
+    rates = {mb: r[1:] for mb, r in rates.items()}  # the first of each: warm-up
+    fields = dict(
+        views=n, config=dict(bin_block=cfg.bin_block, l0_window=list(cfg.l0_window),
+                             caps_given=list(cfg.caps)),
+        plan_s=round(plan.plan_seconds, 4),
+        census_ms_per_view=round(plan.plan_seconds / n * 1e3, 3),
+        buckets=[dict(caps=list(b.config.caps), views=list(b.view_indices))
+                 for b in plan.buckets],
+        use_dist=plan.use_dist, pooled_s=round(pooled_s, 4),
+        pooled_views_per_s=round(n / pooled_s, 4), pooled_launches=pooled_launches,
+        pooled_equals_streaming=True, route_s=round(route_s, 4),
+        route_views_per_s=round(n / route_s, 4), launches=launches,
+        route_view_counts_equal=True, route_mean_max_rel_err=rel,
+        route_s_per_view=round(route_s / n, 4), provider_s=round(provider_s, 4),
+        provider_views_per_s=round(n / provider_s, 4),
+        provider_s_per_view=round(provider_s / n, 4),
+        forced_caps=list(forced_caps), forced_resizes=agg.resizes,
+        forced_equal=True,
+        max_buckets_1_views_per_s=[round(r, 4) for r in rates[1]],
+        max_buckets_4_views_per_s=[round(r, 4) for r in rates[4]],
+        card=card)
+    _line(6, **fields)
+    return launches, fields
+
+
+def _means_phase(mesh, cams, h, w, n_classes, card=None, timing=True):
+    """Phase 6m: the means path (a soft image no one-hot scan accepts)
+    twice through ``aggregate_projected_images`` on a pinhole and a
+    distorted view: the same bits both times; then the ``face_sums``
+    kernel against its plain version on view 0's pix2face, bit for bit,
+    with its times.  Returns (the first run's launches, the kernel's row)."""
+    dev = mesh.device
+    rng = np.random.default_rng(6)
+    soft = rng.random((h, w, n_classes), dtype=np.float32)
+    soft[: h // 16] = np.nan  # unlabelled rows, skipped
+    views = [0, len(cams) - 1]
+    soft_cams = SegmentorCameraSet(cams.get_subset_cameras(views),
+                                   ImageSegmentor([soft, soft]))
+    runs = []
+    for _ in range(2):
+        _reset_launches()
+        runs.append((mesh.aggregate_projected_images(soft_cams), _launches()))
+    (avg, info), launches = runs[0]
+    on_card = torch.device(dev).type == "cuda"
+    want = {"raster_tiles": 2 * on_card, "face_class_counts": 0, "s_raster": 0,
+            "onehot_class": 2 * on_card, "face_sums": 2 * on_card}
+    if launches != want:
+        raise RuntimeError(f"means path: launches {launches}, expected {want}")
+    (avg2, info2), _ = runs[1]
+    same = all(np.array_equal(a, b, equal_nan=True) for a, b in (
+        (avg, avg2), (info["summed_projections"], info2["summed_projections"]),
+        (info["projection_counts"], info2["projection_counts"])))
+    if not same or not (info["projection_counts"] > 0).any():
+        raise RuntimeError("means path: two runs on the same inputs differ")
+    # the kernel against its plain version on view 0's pix2face
+    p2f, _ = mesh._rasterize_view(cams, 0, 1.0, None, mesh.raster_config)
+    keys = p2f.reshape(-1)
+    values = torch.as_tensor(soft).to(dev).reshape(-1, n_classes)
+    sums, counts = face_sums.face_sums(keys, values, mesh.n_faces)
+    order, bounds = face_sums.segment_order(keys, mesh.n_faces)
+    sums_p, counts_p = face_sums.face_sums_plain(values, order, bounds)
+    _sync(dev)
+    if not (torch.equal(sums, sums_p) and torch.equal(counts, counts_p)):
+        raise RuntimeError(f"face_sums kernel vs plain: "
+                           f"{int((sums != sums_p).sum())} sums differ")
+    row = dict(max_abs_err=float((sums - sums_p).abs().max()),
+               pixels=int(keys.numel()), faces_hit=int((counts[:, 0] > 0).sum()),
+               longest_segment=int((bounds[1:] - bounds[:-1]).max()))
+    if timing:
+        seg = torch.where(keys >= 0, keys.long(), mesh.n_faces)
+        zeros = torch.zeros((mesh.n_faces + 1, n_classes), device=dev)
+        n_bytes = keys.numel() * 4 + values.numel() * 4 + 2 * sums.numel() * 4
+        row.update(
+            ms=_cuda_ms(lambda: face_sums.face_sums(keys, values, mesh.n_faces), runs=20),
+            plain_ms=_cuda_ms(lambda: face_sums.face_sums_plain(values, order, bounds)),
+            library_ms=_cuda_ms(lambda: zeros.index_add(0, seg, values), runs=20),
+            bound_ms=_bound(n_bytes, 0)[0], bound_by="bytes")
+    _line("6m", views=views, runs_equal=True, launches=launches,
+          kernel_equals_plain=True, **row, card=card)
+    return launches, row
 
 
 SPECIES = ("cedar", "fir", "oak", "pine")
@@ -1480,18 +1718,38 @@ def _render_times(survey, mesh, cams, cfg):
                 texture_s=round(t3 - t2, 3), vert_to_face_s=round(t4 - t3, 3))
 
 
+class _RouteLog(logging.Handler):
+    """The port's log records: which path ``aggregate_projected_images``
+    took and why, and when the planner's census ended."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []  # (time.time() of the record, message)
+
+    def emit(self, record):
+        self.records.append((record.created, record.getMessage()))
+
+
 def _round_trip(survey, mesh, cfg, device=None, min_agree=ROUND_TRIP_MIN_AGREE):
     """Phase 5c: the rendered masks back onto the mesh through the
     ``aggregate_images`` entry point; of the faces observed and labelled,
     the share whose predicted class is the mesh's face texture."""
     on = {} if device is None else {"device": device}
-    t0 = time.perf_counter()
+    routes = _RouteLog()
+    route_logger = logging.getLogger("geograypher_tpu_torch")
+    level = route_logger.level
+    route_logger.setLevel(logging.INFO)
+    route_logger.addHandler(routes)
+    t0 = time.time()
     pred, avg = aggregate_images(
         survey["mesh_file"], survey["cameras_file"],
         image_folder=survey["render_folder"], label_folder=survey["render_folder"],
         take_every_nth_camera=None, n_classes=len(mesh.IDs_to_labels),
         raster_config=cfg, **on)
-    wall_s = time.perf_counter() - t0
+    t_end = time.time()
+    wall_s = t_end - t0
+    route_logger.removeHandler(routes)
+    route_logger.setLevel(level)
     truth = mesh.get_texture(request_vertex_texture=False)[:, 0]
     if pred.shape != truth.shape or avg.shape != (len(truth), len(mesh.IDs_to_labels)):
         raise RuntimeError(f"round trip: predictions {pred.shape}, faces {truth.shape}")
@@ -1502,7 +1760,17 @@ def _round_trip(survey, mesh, cfg, device=None, min_agree=ROUND_TRIP_MIN_AGREE):
     if agree < min_agree or both.mean() < 0.2:
         raise RuntimeError(f"round trip: {agree:.6f} of {int(both.sum())} observed, "
                            f"labelled faces came back (needs {min_agree})")
-    return dict(wall_s=round(wall_s, 3), faces=len(truth),
+    route = [(t, m) for t, m in routes.records if "aggregate_projected_images" in m]
+    # the log's clock splits the call: up to the route's decision (mesh and
+    # cameras loaded, every view read and scanned), the census, the rest
+    census = [t for t, m in routes.records if m.startswith("census buckets")]
+    split = None
+    if route and census:
+        split = dict(to_route_s=round(route[-1][0] - t0, 3),
+                     census_s=round(census[-1] - route[-1][0], 3),
+                     runs_and_rest_s=round(t_end - census[-1], 3))
+    return dict(route=route[-1][1] if route else None, wall_s=round(wall_s, 3),
+                wall_split=split, faces=len(truth),
                 observed_and_labelled=int(both.sum()),
                 labelled=int(np.isfinite(truth).sum()), agree=agree,
                 min_agree=min_agree, predicted_without_label=stray)
@@ -1523,6 +1791,8 @@ def _render_phase(verts, faces, c2ws, sensors, sensor_ids, cfg, smi):
                 "onehot_class": onehot.launches}
         if any(n != len(c2ws) for n in back.values()):
             raise RuntimeError(f"round trip launches {back} for {len(c2ws)} views")
+        if "planned" not in (trip["route"] or ""):
+            raise RuntimeError(f"round trip took no planned route: {trip['route']}")
         _line("5c", **trip, launches=back, card=smi)
     return launches, back
 

@@ -369,8 +369,9 @@ class CameraSet:
 
     def get_image_by_index(self, index: int, image_scale: float = 1.0) -> np.ndarray:
         """Load camera ``index``'s image (.npy or an image file), keeping
-        raw images in a small LRU cache; resizing (area averaging, for
-        ``image_scale < 1``) runs per call."""
+        raw images in a small LRU cache; resizing runs per call, as cv2's
+        INTER_AREA does it (:func:`~geograypher_tpu_torch.utils.io.resize_area`:
+        area averaging to shrink, its linear variant to enlarge)."""
         fname = self.get_image_filename(index)
         if fname is None:
             raise FileNotFoundError(f"Camera {index} has no image filename")

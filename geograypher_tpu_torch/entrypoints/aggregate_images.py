@@ -3,8 +3,8 @@
 Port of the single-device path of
 ``geograypher_tpu/entrypoints/aggregate_images.py``:
 MetashapeCameraSet (+ subsetting) -> LookUpSegmentor-wrapped cameras ->
-TexturedMesh.aggregate_projected_images on ``device`` -> per-face argmax,
-NaN for faces no view saw.  Clustered aggregation, the DTM ground relabel
+TexturedMesh.aggregate_projected_images on ``device`` (the planned route
+for large one-hot surveys) -> per-face argmax, NaN for faces no view saw.  Clustered aggregation, the DTM ground relabel
 and the vector export raise ``NotImplementedError`` naming their ROADMAP
 items.
 """
@@ -58,10 +58,14 @@ def aggregate_images(
     """Aggregate per-image labels from multiple viewpoints onto the mesh.
 
     Arguments as in ``geograypher_tpu.entrypoints.aggregate_images``;
-    ``device`` is where the per-view work runs; ``raster_config`` replaces
-    the mesh's default tile-list capacities (a view that overflows them
-    raises after the last view, and larger ``caps`` are the remedy).  Returns
-    (predicted_face_classes (F,), average_projections (F, C)).
+    ``device`` is where the per-view work runs.  A survey of one-hot label
+    images past ``TexturedMesh._PLANNED_MIN_PIXELS`` takes the planned
+    route (``parallel/planner.py``), which sizes each view's tile-list
+    caps from a census and re-runs a view that overflows them.  The
+    optional ``raster_config`` gives the binning geometry, and the caps of
+    a streaming run (a smaller survey, or other images), where a view that
+    overflows raises after the last view.  Returns (predicted_face_classes
+    (F,), average_projections (F, C)).
     """
     if n_aggregation_clusters is not None or n_cameras_per_aggregation_cluster:
         raise NotImplementedError(

@@ -52,6 +52,8 @@ SIGNATURES = {
     "gg_face_class_counts": [_P, _P, _P, _I, _I, _I64, _I, _P],
     # image, class_image, violations, n_pix, n_classes, is_double, stream
     "gg_onehot_class": [_P, _P, _P, _I64, _I, _I, _P],
+    # values, order, bounds, sums, counts, n_segments, n_channels, stream
+    "gg_face_sums": [_P] * 5 + [_I64, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,10 +8,13 @@ transform, triangle setup, tile binning, the raster kernel, then either
 the counts kernel (aggregation, see ``ops/rasterize.py``) or the
 distortion remap and the texture gather (rendering).
 
+Large surveys of one-hot label images aggregate through the
+census-bucketed planner (``parallel/planner.py``): caps sized per view
+from a census, overflowing views re-sized and re-run instead of raising.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): raster (GeoTIFF) textures, the DTM ground relabel and the polygon
-exports (A6), planned aggregation (A7), chunked rendering and batched
-views (A11).
+exports (A6), chunked rendering and batched views (A11).
 """
 
 from __future__ import annotations
@@ -52,10 +55,11 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     tri_to_soa,
 )
+from geograypher_tpu_torch.parallel import planner as _planner
 from geograypher_tpu_torch.utils import cache as p2f_cache
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils import geometric
-from geograypher_tpu_torch.utils.device import resolve_device
+from geograypher_tpu_torch.utils.device import PinnedUpload, resolve_device
 from geograypher_tpu_torch.utils.files import ensure_containing_folder
 from geograypher_tpu_torch.utils.io import nearest_indices, write_image
 from geograypher_tpu_torch.utils.meshio import load_mesh, save_mesh
@@ -73,35 +77,6 @@ from geograypher_tpu_torch.utils.vector import (
 logger = logging.getLogger(__name__)
 
 DEFAULT_RASTER_CONFIG = RasterConfig(caps=(512, 128, 64, 64))
-
-
-class _PinnedUpload:
-    """Host arrays to ``device`` through one page-locked staging buffer,
-    allocated at the first upload and reused by the next ones: the copy
-    into it and the DMA out of it together take a third to a half of the
-    time of a pageable ``.to(device)`` for a 4K one-hot stack.  On a CPU device
-    the array is wrapped as it is."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self._stage: typing.Optional[torch.Tensor] = None
-        self._left: typing.Optional[torch.cuda.Event] = None
-
-    def __call__(self, array: np.ndarray) -> torch.Tensor:
-        host = torch.as_tensor(np.ascontiguousarray(array))
-        if self.device.type != "cuda" or host.numel() == 0:
-            return host.to(self.device)
-        if self._left is not None:
-            self._left.synchronize()  # the last image has left the buffer
-        n_bytes = host.numel() * host.element_size()
-        if self._stage is None or self._stage.numel() < n_bytes:
-            self._stage = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
-        stage = self._stage[:n_bytes].view(host.dtype).view(host.shape)
-        stage.copy_(host)
-        on_device = stage.to(self.device, non_blocking=True)
-        self._left = torch.cuda.Event()
-        self._left.record(torch.cuda.current_stream(self.device))
-        return on_device
 
 
 class TexturedMesh:
@@ -154,6 +129,7 @@ class TexturedMesh:
         self.vertex_texture: typing.Optional[np.ndarray] = None
         self.face_texture: typing.Optional[np.ndarray] = None
         self._tri_cache: dict = {}
+        self._agg_plan_cache: dict = {}  # AggregationPlan per survey key
         self._local_transform = None  # set when georeferenced
         self._mesh_attrs: dict = {}
         self.distortion_engine = DistortionEngine(self.device)
@@ -243,6 +219,7 @@ class TexturedMesh:
         (crop / sort / downsample): the triangle caches, and the
         distortion maps kept beside them."""
         self._tri_cache.clear()
+        self._agg_plan_cache.clear()
         self.distortion_engine.clear()
 
     # -- geometry -------------------------------------------------------------
@@ -861,9 +838,10 @@ class TexturedMesh:
         return np.stack(out, axis=0)
 
     def _render_flat_device(self, cameras, render_img_scale, pix2face_kwargs):
-        """Per-camera (H, W, C) float32 rendered texture images on the
-        mesh's device; raises after the last view if any view's tile
-        lists dropped candidates."""
+        """Per camera ``(image, overflow)``: the (H, W, C) float32 rendered
+        texture image on the mesh's device and the candidates its tile
+        lists dropped (a () tensor on the device; the image is incomplete
+        when it is not 0).  Raises nothing on overflow: the callers do."""
         face_tex = self.get_texture(
             request_vertex_texture=False, try_verts_faces_conversion=True
         )
@@ -872,20 +850,19 @@ class TexturedMesh:
         tex_dev = self._on_device(face_tex, torch.float32)
         config = pix2face_kwargs.get("config") or self.raster_config
         apply_distortion = pix2face_kwargs.get("apply_distortion")
-        worst = torch.zeros((), dtype=torch.int64, device=self.device)
         for i in range(len(cameras)):
             if pix2face_kwargs.get("save_to_cache"):
+                # the cached path raises on an overflowing view itself
                 p2f = self._pix2face_device(
                     cameras, i, render_img_scale=render_img_scale,
                     **pix2face_kwargs,
                 )
+                overflow = torch.zeros((), dtype=torch.int64, device=self.device)
             else:
                 p2f, overflow = self._rasterize_view(
                     cameras, i, render_img_scale, apply_distortion, config
                 )
-                worst = torch.maximum(worst, overflow)
-            yield render_texture(p2f, tex_dev)
-        self._raise_on_overflow(worst)
+            yield render_texture(p2f, tex_dev), overflow
 
     def render_flat(
         self,
@@ -905,13 +882,34 @@ class TexturedMesh:
                 "batched views are not ported yet (ROADMAP A11); the loop "
                 "runs one view at a time, pass batch_size=1"
             )
-        for i, img in enumerate(self._render_flat_device(
+        worst = torch.zeros((), dtype=torch.int64, device=self.device)
+        for i, (img, overflow) in enumerate(self._render_flat_device(
                 cameras, render_img_scale, pix2face_kwargs)):
+            worst = torch.maximum(worst, overflow)
             img = img.cpu().numpy()
             if return_camera:
                 yield img, cameras.get_subset_cameras([i])
             else:
                 yield img
+        self._raise_on_overflow(worst)
+
+    @staticmethod
+    def _one_hot_scan(upload: PinnedUpload, img):
+        """``(image, image on the device, class image or None)``: the image
+        uploaded once (float64 as it is, every other dtype as float32) and
+        scanned where it lies by
+        :func:`~geograypher_tpu_torch.ops.onehot.onehot_to_class`; the
+        class image is None unless the image is an exact one-hot stack
+        (one 4-byte read-back decides)."""
+        img = np.asarray(img)
+        if img.dtype not in (np.float32, np.float64):
+            # exact for 0 and 1, and no other value becomes 0 or 1
+            img = img.astype(np.float32)
+        img_dev = upload(img)
+        if img.ndim != 3 or img.shape[-1] < 2:
+            return img, img_dev, None
+        cls, violations = onehot_to_class(img_dev)
+        return img, img_dev, (None if int(violations) else cls)
 
     def project_images(
         self,
@@ -944,24 +942,13 @@ class TexturedMesh:
         config = pix2face_kwargs.get("config") or self.raster_config
         apply_distortion = pix2face_kwargs.get("apply_distortion")
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-        upload = _PinnedUpload(self.device)
+        upload = PinnedUpload(self.device)
         for i in range(len(cameras)):
             img = cameras.get_image_by_index(i, aggregate_img_scale)
             if check_null_image and not np.any(np.isfinite(img)):
                 yield None
                 continue
-            img = np.asarray(img)
-            if img.dtype not in (np.float32, np.float64):
-                # exact for 0 and 1, and no other value becomes 0 or 1
-                img = img.astype(np.float32)
-            img_dev = upload(img)
-            cls = None
-            if img.ndim == 3 and img.shape[-1] >= 2:
-                # the one-hot scan runs where the image is; one 4-byte
-                # read-back per view decides the path
-                cls, violations = onehot_to_class(img_dev)
-                if int(violations):
-                    cls = None
+            img, img_dev, cls = self._one_hot_scan(upload, img)
             if cls is None:
                 p2f, over = self._rasterize_view(
                     cameras, i, aggregate_img_scale, apply_distortion, config
@@ -999,6 +986,11 @@ class TexturedMesh:
                 "with larger caps."
             )
 
+    # route aggregate_projected_images to the planner from this many label
+    # pixels over the survey's views on (4 views at 4K): the census costs
+    # a view's setup and binning once more
+    _PLANNED_MIN_PIXELS = 32 * 1024 * 1024
+
     def aggregate_projected_images(
         self,
         cameras: CameraSet,
@@ -1008,19 +1000,27 @@ class TexturedMesh:
         use_planned="auto",
         **kwargs,
     ):
-        """Average projections across views (per-view streaming loop).
+        """Average projections across views.
 
-        ``use_planned=True`` asks for the census-bucketed planner, which
-        is not ported yet; ``"auto"`` and ``False`` stream.
+        ``use_planned``: serve the call through the census-bucketed
+        planner (:meth:`aggregate_projected_images_planned`, the same
+        view-weighted semantics) when every view is an exact one-hot class
+        stack.  ``"auto"`` (default) routes surveys past
+        ``_PLANNED_MIN_PIXELS`` label pixels; ``True`` forces it (raises
+        ``ValueError`` with the reason when it cannot); ``False``, and
+        ``return_all=True``, keep the per-view streaming loop, which raises
+        after the last view if a view's tile lists dropped candidates.
 
         Returns (average_projections (F, C) numpy, additional_information
         dict).
         """
-        if use_planned is True:
-            raise NotImplementedError(
-                "planned aggregation is not ported yet (ROADMAP A7); use "
-                "use_planned='auto' or False to stream"
+        if use_planned is not False and not return_all:
+            routed = self._route_projected_planned(
+                cameras, aggregate_img_scale, kwargs,
+                strict=(use_planned is True),
             )
+            if routed is not None:
+                return routed
         state = None
         all_projections = []
         for proj in self.project_images(
@@ -1052,6 +1052,225 @@ class TexturedMesh:
             additional["all_projections"] = all_projections
         return avg, additional
 
+    def _route_projected_planned(
+        self, cameras, aggregate_img_scale: float, kwargs: dict,
+        strict: bool,
+    ):
+        """Try to serve :meth:`aggregate_projected_images` through the
+        planned weighted path; return its (avg, additional), or None with
+        the reason logged (raised as ``ValueError`` when ``strict``).
+
+        Each view's image is read and uploaded once and scanned on the
+        device; its class image comes back to the host as int8 (int32 past
+        127 classes), so the planner and its retry never touch the float
+        stack again.  A view the scan refuses sends the call down the
+        streaming path.
+        """
+        reason = None
+        extra = set(kwargs) - {"config", "apply_distortion"}
+        labels, n_classes = None, None
+        if extra:
+            reason = f"unsupported project_images kwargs {sorted(extra)}"
+        else:
+            batch = cameras.get_camera_batch(
+                image_scale=aggregate_img_scale, device="cpu")
+            h, w = batch.image_height, batch.image_width
+            px = len(cameras) * h * w
+            if not strict and px < self._PLANNED_MIN_PIXELS:
+                reason = (
+                    f"survey too small to amortize planning "
+                    f"({px} label pixels < {self._PLANNED_MIN_PIXELS})"
+                )
+        if reason is None:
+            upload = PinnedUpload(self.device)
+            for i in range(len(cameras)):
+                img, _, cls = self._one_hot_scan(
+                    upload, cameras.get_image_by_index(i, aggregate_img_scale))
+                if cls is None:
+                    reason = f"view {i} is not an exact one-hot class stack"
+                    break
+                if n_classes is None:
+                    n_classes = img.shape[-1]
+                    labels = np.empty((len(cameras), h, w),
+                                      _planner.label_dtype(n_classes))
+                elif img.shape[-1] != n_classes:
+                    reason = f"view {i} channel count changed"
+                    break
+                if tuple(cls.shape) != (h, w):
+                    reason = f"view {i} image size differs from the batch"
+                    break
+                # classes are in [-1, n_classes): the cast cannot wrap
+                labels[i] = cls.to(torch.int8 if labels.dtype == np.int8
+                                   else torch.int32).cpu().numpy()
+        if reason is not None:
+            if strict:
+                raise ValueError(
+                    f"use_planned=True but the planned path cannot serve "
+                    f"this call: {reason}"
+                )
+            logger.info("aggregate_projected_images: streaming (%s)", reason)
+            return None
+        logger.info(
+            "aggregate_projected_images: routing %d views through the "
+            "planned weighted path", len(cameras),
+        )
+        return self.aggregate_projected_images_planned(
+            cameras, n_classes,
+            aggregate_img_scale=aggregate_img_scale,
+            config=kwargs.get("config"),
+            apply_distortion=kwargs.get("apply_distortion"),
+            labels=labels,
+        )
+
+    def aggregate_class_images_planned(
+        self,
+        cameras: CameraSet,
+        n_classes: int,
+        class_image_provider: typing.Optional[
+            typing.Callable[[int], np.ndarray]
+        ] = None,
+        aggregate_img_scale: float = 1.0,
+        config: typing.Optional[RasterConfig] = None,
+        apply_distortion: typing.Optional[bool] = None,
+        max_buckets: int = 4,
+        group: int = 20,
+        census_sample: typing.Optional[int] = None,
+        label_index=None,
+        labels=None,
+    ):
+        """Census-bucketed POOLED pixel-count aggregation: the sum over
+        views of per-face per-class pixel counts.
+
+        Views are censused one by one, bucketed by rounded caps, and run
+        with their bucket's caps (``parallel/planner.py``); a view that
+        overflows them adds nothing and is re-censused and re-run, never
+        raised after partial work.  The plan is cached on the mesh per
+        (config, scale, distortion, buckets, sample, cameras).
+
+        Args:
+            labels: optional (M, H, W) integer class stack, numpy or a
+                tensor.  Defaults to ``class_image_provider(i)`` (or the
+                argmax of every view's image, -1 where a row is not
+                finite) for every view; ``label_index`` maps view id ->
+                row of ``labels`` when views share label images.
+
+        Returns (counts (n_faces, n_classes) float32 numpy,
+        :class:`~geograypher_tpu_torch.parallel.planner.AggregationPlan`).
+        """
+        tri_soa, params, labels, h, w, use_dist, key, config = (
+            self._planned_inputs(
+                cameras, n_classes, class_image_provider, aggregate_img_scale,
+                config, apply_distortion, max_buckets, census_sample, labels,
+            )
+        )
+        counts, plan = _planner.aggregate_counts_planned(
+            tri_soa, params, labels, config, h, w, tri_soa.shape[1], n_classes,
+            use_dist=use_dist, max_buckets=max_buckets, group=group,
+            census_sample=census_sample, plan=self._agg_plan_cache.get(key),
+            label_index=label_index,
+        )
+        self._agg_plan_cache[key] = plan
+        return counts[: self.n_faces], plan
+
+    def _planned_inputs(
+        self, cameras, n_classes, class_image_provider, aggregate_img_scale,
+        config, apply_distortion, max_buckets, census_sample, labels,
+    ):
+        """Shared prep of the planned paths: the triangles (padded to
+        ``bin_block`` as the streaming path pads them), packed view
+        parameters, the class-image stack, the plan cache key and the
+        config."""
+        config = config or self.raster_config
+        batch = cameras.get_camera_batch(image_scale=aggregate_img_scale,
+                                         device="cpu")
+        h, w = batch.image_height, batch.image_width
+        n = len(cameras)
+        # one lens model for the whole plan, as the census and the runs
+        # must share it: with any distortion or principal-point offset in
+        # the survey every view rasterizes in its distorted pixel space
+        use_dist = bool(
+            (apply_distortion is None or apply_distortion)
+            and (bool(batch.distortion.any()) or bool(batch.cx.any())
+                 or bool(batch.cy.any()))
+        )
+        tri_soa = self._tri_soa_device(cameras, config.bin_block)
+        params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
+        if labels is None:
+            if class_image_provider is None:
+
+                def class_image_provider(i: int) -> np.ndarray:
+                    img = np.asarray(
+                        cameras.get_image_by_index(i, aggregate_img_scale)
+                    )
+                    if img.ndim == 3:
+                        finite = np.isfinite(img).all(axis=-1)
+                        cls = np.argmax(np.nan_to_num(img), axis=-1)
+                        return np.where(finite, cls, -1)
+                    return np.nan_to_num(img, nan=-1).astype(np.int64)
+
+            labels = np.empty((n, h, w), _planner.label_dtype(n_classes))
+            for i in range(n):
+                labels[i] = _planner.as_label_dtype(class_image_provider(i),
+                                                    n_classes)
+        key = (
+            config, round(aggregate_img_scale, 6), use_dist, max_buckets,
+            census_sample, cameras.get_camera_hash(),
+        )
+        return tri_soa, params, labels, h, w, use_dist, key, config
+
+    def aggregate_projected_images_planned(
+        self,
+        cameras: CameraSet,
+        n_classes: int,
+        class_image_provider: typing.Optional[
+            typing.Callable[[int], np.ndarray]
+        ] = None,
+        aggregate_img_scale: float = 1.0,
+        config: typing.Optional[RasterConfig] = None,
+        apply_distortion: typing.Optional[bool] = None,
+        max_buckets: int = 4,
+        group: int = 20,
+        census_sample: typing.Optional[int] = None,
+        label_index=None,
+        labels=None,
+    ):
+        """Census-bucketed VIEW-WEIGHTED aggregation: per view the per-face
+        class distribution (counts / total), averaged over the views that
+        saw the face, as :meth:`aggregate_projected_images` computes it;
+        arguments as :meth:`aggregate_class_images_planned`.
+
+        Returns ``(average_projections (n_faces, n_classes) with NaN on
+        unseen faces, additional_information dict)`` with the keys of
+        :meth:`aggregate_projected_images` and ``"plan"``.
+        """
+        tri_soa, params, labels, h, w, use_dist, key, config = (
+            self._planned_inputs(
+                cameras, n_classes, class_image_provider, aggregate_img_scale,
+                config, apply_distortion, max_buckets, census_sample, labels,
+            )
+        )
+        value_sum, view_count, plan = _planner.aggregate_projected_planned(
+            tri_soa, params, labels, config, h, w, tri_soa.shape[1], n_classes,
+            use_dist=use_dist, max_buckets=max_buckets, group=group,
+            census_sample=census_sample, plan=self._agg_plan_cache.get(key),
+            label_index=label_index,
+        )
+        self._agg_plan_cache[key] = plan
+        value_sum = value_sum[: self.n_faces]
+        view_count = view_count[: self.n_faces]
+        with np.errstate(invalid="ignore"):
+            avg = np.where(
+                view_count[:, None] > 0,
+                value_sum / np.maximum(view_count, 1.0)[:, None],
+                np.nan,
+            )
+        additional = {
+            "projection_counts": view_count,
+            "summed_projections": value_sum,
+            "plan": plan,
+        }
+        return avg, additional
+
     # -- saving ---------------------------------------------------------------
 
     def save_renders(
@@ -1076,6 +1295,10 @@ class TexturedMesh:
         package's hold, a 3-channel texture in cv2's channel order (the
         texture's channels reversed) included.  ``output_extension=".npy"``
         saves the float32 render itself.
+
+        A view whose tile lists dropped candidates writes no file (its
+        overflow is read before the write); after the last view the call
+        raises naming those views.
         """
         if make_composites:
             raise NotImplementedError(
@@ -1088,7 +1311,11 @@ class TexturedMesh:
             )
         output_folder = Path(output_folder)
         renders = self._render_flat_device(cameras, render_image_scale, render_kwargs)
-        for i, img in enumerate(renders):
+        overflowed = []
+        for i, (img, overflow) in enumerate(renders):
+            if int(overflow):
+                overflowed.append(i)
+                continue
             fname = cameras.image_filenames[i]
             rel = Path(fname.name if fname is not None else "render")
             out_path = (output_folder / rel).with_suffix(output_extension)
@@ -1107,6 +1334,12 @@ class TexturedMesh:
                     data.shape[1], sensor["image_width"]), device=self.device)
                 data = data[rows[:, None], cols[None, :]]
             write_image(out_path, data.cpu().numpy())
+        if overflowed:
+            raise RuntimeError(
+                f"raster capacity overflow in views {overflowed}: their tile "
+                "lists dropped candidates, so no file was written for them. "
+                "Pass a RasterConfig with larger caps."
+            )
 
     def save_mesh(self, savepath: PATH_TYPE, write_texture: bool = True):
         """Write the geometry (and a vertex texture as colours) as PLY."""

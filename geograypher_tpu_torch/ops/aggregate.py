@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from geograypher_tpu_torch.ops.face_counts import face_class_counts
+from geograypher_tpu_torch.ops.face_sums import face_sums
 from geograypher_tpu_torch.utils.device import resolve_device
 
 
@@ -39,23 +40,17 @@ def project_image_to_faces(
         image: (H, W) or (H, W, C) pixel values; NaNs are ignored.
 
     Returns (sums, counts), each (n_faces, C) float32: the sum and the
-    number of finite pixel values per face.
+    number of finite pixel values per face.  The sums are added in pixel
+    order within each face (:func:`~geograypher_tpu_torch.ops.face_sums.face_sums`,
+    the ``face_sums`` kernel on the card), so they are the same bits on
+    every run and on every device.
     """
     if image.ndim == 2:
         image = image[..., None]
     c = image.shape[-1]
-    flat_face = pix2face.reshape(-1).long()
-    flat_img = image.reshape(-1, c).to(torch.float32)
-    finite = torch.isfinite(flat_img)
-    hit = (flat_face >= 0)[:, None] & finite
-    vals = torch.where(hit, flat_img, 0.0)
-    # background pixels go to segment n_faces, which is dropped
-    seg = torch.where(flat_face >= 0, flat_face, n_faces)
-    zeros = torch.zeros((n_faces + 1, c), dtype=torch.float32,
-                        device=image.device)
-    sums = zeros.index_add(0, seg, vals)[:-1]
-    counts = zeros.index_add(0, seg, hit.to(torch.float32))[:-1]
-    return sums, counts
+    flat_img = image.reshape(-1, c).to(torch.float32).contiguous()
+    sums, counts = face_sums(pix2face.reshape(-1), flat_img, n_faces)
+    return sums, counts.to(torch.float32)
 
 
 def project_image_class_counts(
@@ -174,22 +169,20 @@ def vert_to_face_mean(faces: torch.Tensor, vert_values: torch.Tensor) -> torch.T
 def face_to_vert_texture(
     faces: torch.Tensor, face_values: torch.Tensor, n_verts: int
 ) -> torch.Tensor:
-    """Mean of adjacent faces' values per vertex (``index_add_`` in place
-    of the JAX package's ``segment_sum``).
+    """Mean of adjacent faces' values per vertex; a face whose row holds a
+    non-finite value does not vote.
 
-    The float32 sums run in a fixed order on the CPU.  On the card
-    ``index_add_`` adds atomically in no fixed order, so results there
-    agree with the CPU's to ``rtol=1e-6``, not bit for bit.
+    The float32 sums run in a fixed order (ascending face id per vertex,
+    :func:`~geograypher_tpu_torch.ops.face_sums.face_sums`), so two runs
+    give the same bits, on the card as on the CPU.
     """
     if face_values.ndim == 1:
         face_values = face_values[:, None]
-    vid = faces.reshape(-1).long()
-    vals = face_values.repeat_interleave(3, dim=0)
+    vid = faces.reshape(-1)
+    vals = face_values.to(torch.float32).repeat_interleave(3, dim=0)
     finite = torch.isfinite(vals).all(dim=-1, keepdim=True)
-    sums = torch.zeros((n_verts, vals.shape[1]), dtype=vals.dtype,
-                       device=vals.device)
-    sums.index_add_(0, vid, torch.where(finite, vals, 0.0))
-    counts = torch.zeros((n_verts, 1), dtype=torch.float32, device=vals.device)
-    counts.index_add_(0, vid, finite.to(torch.float32))
+    vals = torch.where(finite, vals, float("nan")).contiguous()
+    sums, counts = face_sums(vid, vals, n_verts)
+    counts = counts[:, :1].to(torch.float32)
     return torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
                        float("nan"))

@@ -184,24 +184,43 @@ def _area_taps(src_size: int, dst_size: int):
     return np.minimum(idx, src_size - 1), weights.astype(np.float32)
 
 
+def _area_linear_taps(src_size: int, dst_size: int):
+    """(indices, weights), each (dst_size, 2): the two source pixels and
+    their weights of cv2's INTER_AREA along an axis of a resize that
+    enlarges on some axis, where cv2 interpolates linearly with the area
+    rule's fractions (``resize.cpp``: ``sx = floor(dx * scale)``,
+    ``fx = (dx + 1) - (sx + 1) / scale`` when positive, else 0, taken
+    modulo 1; the last pixel clamps)."""
+    scale = src_size / dst_size
+    inv_scale = dst_size / src_size
+    dx = np.arange(dst_size)
+    sx = np.floor(dx * scale).astype(np.int64)
+    fx = ((dx + 1) - (sx + 1) * inv_scale).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    last = sx >= src_size - 1
+    fx = np.where(last, np.float32(0), fx)
+    sx = np.minimum(sx, src_size - 1)
+    idx = np.stack([sx, np.minimum(sx + 1, src_size - 1)], axis=1)
+    return idx, np.stack([1 - fx, fx], axis=1).astype(np.float32)
+
+
 def resize_area(image: np.ndarray, width: int, height: int) -> np.ndarray:
-    """Downscale by area averaging: every destination pixel is the mean
-    of the source area it covers, fractional pixels weighted by their
-    share (what ``cv2.resize(..., interpolation=cv2.INTER_AREA)`` computes
-    when it shrinks an image; uint8 results agree to +-1).  Integer
-    images are rounded back to their dtype.  Enlarging is not supported.
+    """``cv2.resize(image, (width, height), interpolation=cv2.INTER_AREA)``
+    without cv2.  When neither axis grows, every destination pixel is the
+    mean of the source area it covers, fractional pixels weighted by their
+    share; when one axis grows, both axes interpolate linearly between two
+    source pixels with cv2's area-mode fractions.  Integer images are
+    rounded back to their dtype (uint8 agrees with cv2 to +-1, which works
+    in fixed point; float32 to ~1e-6).
     """
     image = np.asarray(image)
     h, w = image.shape[:2]
-    if width > w or height > h:
-        raise ValueError(
-            f"resize_area shrinks images: {w}x{h} to {width}x{height} enlarges one"
-        )
+    taps = _area_taps if width <= w and height <= h else _area_linear_taps
     out = image.astype(np.float32)
     for axis, (src, dst) in enumerate(((h, height), (w, width))):
         if src == dst:
             continue
-        idx, weights = _area_taps(src, dst)
+        idx, weights = taps(src, dst)
         shape = [1] * out.ndim
         shape[axis] = dst
         acc = 0.0

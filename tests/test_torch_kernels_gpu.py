@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from geograypher_tpu_torch.ops import face_counts, onehot, raster_tiles, subtile
+from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
 from geograypher_tpu_torch.ops import rasterize as tr
 from geograypher_tpu_torch.utils.fixtures import (
     gather_tri_verts,
@@ -224,8 +224,8 @@ def test_project_images_scans_on_the_card(cuda):
         assert torch.equal(on_cpu[0], on_card[0]) and torch.equal(on_cpu[1], on_card[1])
         assert float(on_card[0].sum()) > 1000
     for on_cpu, on_card in zip(results["cpu"][2:], results["cuda"][2:]):
-        # float32 sums in the order the card's atomics land in
-        torch.testing.assert_close(on_cpu[0], on_card[0], rtol=1e-5, atol=1e-5)
+        # float32 sums in pixel order on both: the same bits
+        assert torch.equal(on_cpu[0], on_card[0])
         assert torch.equal(on_cpu[1], on_card[1])
 
 
@@ -327,3 +327,67 @@ def test_level_s_on_the_card_needs_no_sort(cuda, monkeypatch):
     want = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, 200, 320,
                                            s_init=s_init)
     assert torch.equal(p2f, want) and int(binned.overflow) == 0
+
+
+@pytest.mark.parametrize("n,n_segments,c", [(1, 1, 1), (5000, 300, 3), (3, 10, 1),
+                                            (200000, 30000, 10), (70000, 7, 2)])
+def test_face_sums_kernel_matches_plain(cuda, n, n_segments, c):
+    """The fixed-order sum kernel bit-equal to its plain version and to the
+    CPU's, and two runs equal: keys out of range, NaN and inf included."""
+    rng = np.random.default_rng(n + c)
+    keys = torch.as_tensor(rng.integers(-2, n_segments + 2, n).astype(np.int32))
+    values = torch.as_tensor((rng.standard_normal((n, c)) * 1e3).astype(np.float32))
+    values[torch.as_tensor(rng.random((n, c)) < 0.05)] = float("nan")
+    values[torch.as_tensor(rng.random((n, c)) < 0.01)] = float("inf")
+    k, v = keys.to(cuda), values.to(cuda)
+    before = face_sums.launches
+    sums, counts = face_sums.face_sums(k, v, n_segments)
+    torch.cuda.synchronize()
+    assert face_sums.launches == before + 1
+    order, bounds = face_sums.segment_order(k, n_segments)
+    want_sums, want_counts = face_sums.face_sums_plain(v, order, bounds)
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    again = face_sums.face_sums(k, v, n_segments)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+    on_cpu = face_sums.face_sums(keys, values, n_segments)
+    assert torch.equal(on_cpu[0], sums.cpu()) and torch.equal(on_cpu[1], counts.cpu())
+
+
+def test_planned_aggregation_on_the_card(cuda):
+    """The planner on the card equals the same plan on the CPU, a forced
+    overflow included (gated, re-censused, re-run)."""
+    import dataclasses as dc
+
+    from geograypher_tpu_torch.parallel import planner
+
+    verts, faces = make_grid_mesh(
+        n=41, size=4.0, z_fn=lambda x, y: 0.2 * np.sin(3 * x) * np.cos(2 * y))
+    tri = tr.tri_to_soa(torch.as_tensor(gather_tri_verts(verts, faces),
+                                        dtype=torch.float32))
+    c2ws = [oblique_camera(3.0, 180.0, 320, pitch_deg=p, azimuth_deg=a)
+            for p, a in ((5.0, 0.0), (32.0, 135.0), (25.0, 250.0))]
+    w2c = np.stack([np.linalg.inv(m) for m in c2ws])
+    params = planner.pack_view_params(w2c, np.full(3, 180.0))
+    labels = np.random.default_rng(3).integers(-1, 6, (3, 200, 320)).astype(np.int8)
+    cfg = tr.RasterConfig(bin_block=8, l0_window=(5, 2))
+    results = {}
+    for device in ("cpu", "cuda"):
+        t = tri.to(device)
+        plan = planner.plan_aggregation(t, params, cfg, 200, 320, t.shape[1])
+        forced = dc.replace(plan, buckets=(planner.BucketPlan(
+            dc.replace(cfg, caps=(16, 16, 16, 16)), (0, 1, 2)),))
+        out = []
+        for p, weighted in ((plan, False), (plan, True), (forced, False)):
+            agg = planner.PlannedAggregator(p, 6, weighted=weighted)
+            agg.prepare(t, params, labels)
+            agg.run()
+            out.append((agg.finalize(), agg.resizes))
+        results[device] = (plan, out)
+    (plan_c, out_c), (plan_g, out_g) = results["cpu"], results["cuda"]
+    assert plan_c.buckets == plan_g.buckets
+    np.testing.assert_array_equal(out_g[0][0], out_c[0][0])
+    assert out_g[0][0].sum() > 0
+    np.testing.assert_array_equal(out_g[1][0][1], out_c[1][0][1])
+    np.testing.assert_allclose(out_g[1][0][0], out_c[1][0][0], rtol=1e-6, atol=1e-7)
+    assert out_g[2][1] >= 1 and out_c[2][1] == out_g[2][1]
+    np.testing.assert_array_equal(out_g[2][0], out_c[0][0])

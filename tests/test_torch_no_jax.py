@@ -44,6 +44,8 @@ names = ["chip_smoke"] + [
 assert "geograypher_tpu_torch.ops.onehot" in names, names
 assert "geograypher_tpu_torch.entrypoints.render_labels" in names, names
 assert "geograypher_tpu_torch.utils.vector" in names, names
+assert "geograypher_tpu_torch.parallel.planner" in names, names
+assert "geograypher_tpu_torch.ops.face_sums" in names, names
 for name in names:
     importlib.import_module(name)
 assert not loaded(*REFUSED), loaded(*REFUSED)
@@ -53,8 +55,8 @@ print(len(names))
 # chip_smoke.py's main path at a tiny size on CPU tensors, with the whole
 # JAX package refused: the scene, the sorted mesh, a segmentor camera set,
 # the one-hot probes (accepted images against the numpy scan, refused
-# images down the means path) and the streaming aggregation, with level S
-# off and on
+# images down the means path), the streaming aggregation with level S off
+# and on, and phases 6 and 6m (the planner and the means path)
 CHIP_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
            "imageio", "sklearn")
@@ -100,6 +102,15 @@ assert np.allclose(avg_s[seen_s].sum(axis=1), 1.0, atol=1e-5)
 assert np.isnan(avg_s[~seen_s]).all()
 # CPU tensors take the plain versions
 assert cs.subtile.launches == 0 and cs.onehot.launches == 0
+# phase 6 (the planner, its route, a forced retry, one bucket against
+# four) and phase 6m (the means path twice, face_sums against plain)
+launches, fields = cs._planned_phase(mesh, cams, seg, labels, 3,
+                                     forced_caps=(1, 1, 1, 1))
+assert fields["forced_resizes"] >= 1 and fields["buckets"]
+assert not any(launches.values()), launches
+launches, row = cs._means_phase(mesh, cams, h, w, 3, timing=False)
+assert row["max_abs_err"] == 0.0 and row["faces_hit"] > 0
+assert not any(launches.values()), launches
 assert not loaded(*REFUSED), loaded(*REFUSED)
 print("ok")
 """
@@ -188,7 +199,7 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_chip_smoke_path_needs_nothing_of_the_jax_package():
     out = run(CHIP_PATH)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def test_chip_smoke_render_path_needs_nothing_of_the_jax_package():

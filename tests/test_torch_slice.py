@@ -144,12 +144,20 @@ def test_mesh_runs_on_the_card_unless_asked_for_the_cpu(survey):
 
 
 def test_planned_aggregation_not_ported(survey):
+    """Planned aggregation is ported: ``use_planned=True`` serves the slice
+    (a distorted sensor among pinhole ones, unlabelled pixels) through the
+    planner, equal to the streaming path: view counts exactly, means to
+    f32 rounding, NaN on the same faces."""
     jmesh, jcams = survey
     mesh = interop.mesh_from_jax(jmesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        mesh.aggregate_projected_images(
-            interop.cameras_from_jax(jcams), use_planned=True
-        )
+    cams = interop.cameras_from_jax(jcams)
+    avg, info = mesh.aggregate_projected_images(cams, use_planned=True)
+    ref, ref_info = mesh.aggregate_projected_images(cams, use_planned=False)
+    assert info["plan"].use_dist and info["plan"].n_views == len(cams)
+    np.testing.assert_array_equal(info["projection_counts"],
+                                  ref_info["projection_counts"])
+    np.testing.assert_allclose(avg, ref, rtol=1e-6, atol=1e-7, equal_nan=True)
+    assert np.isfinite(avg).all(axis=1).mean() > 0.5
 
 
 def test_batched_views_not_ported(survey):

@@ -67,7 +67,9 @@ Phases (each prints one line; any failure raises and exits nonzero):
    buckets, views/s of the route, of int class images from a provider,
    and of one bucket against four; ``"6m"``: the means path (a soft image)
    twice on a pinhole and a distorted view, bit for bit, and the
-   ``face_sums`` kernel against its plain version on view 0.
+   ``face_sums`` kernels against their plain version on view 0 and on the
+   mesh's 3F vertex keys (``face_to_vert_texture``'s sum), with the
+   wrapper's launches by name (no sort).
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -442,6 +444,29 @@ def _suite_cameras(focals=(2000.0, 2600.0), n_views=8):
     return c2ws
 
 
+def _bench_scene(dev, mesh_n=708):
+    """The bench grid mesh (999,698 faces at ``mesh_n=708``), spatially
+    sorted, on ``dev``, and the suite's 8 cameras: two lens models
+    (pinhole, Brown-Conrady), each at the two focals.  Returns (verts,
+    faces, mesh, c2ws, sensors, sensor_ids, cams)."""
+    verts, faces = make_grid_mesh(
+        n=mesh_n, size=4.0, z_fn=lambda x, y: 0.1 * np.sin(3 * x) * np.cos(3 * y)
+    )
+    mesh = TexturedMesh((verts, faces), raster_config=RasterConfig(), device=dev)
+    mesh.spatial_sort_faces()
+    c2ws = _suite_cameras()
+    dist = {"k1": 0.02, "k2": -0.01, "p1": 1e-3}
+    sensors = {
+        2 * d + j: {"f": fl, "cx": 0.0, "cy": 0.0, "image_width": W,
+                    "image_height": H,
+                    **({"distortion_params": dist} if d else {})}
+        for d in (0, 1) for j, fl in enumerate((2000.0, 2600.0))
+    }
+    sensor_ids = [2 * (k >= 6) + (k % 2) for k in range(len(c2ws))]
+    cams = CameraSet(c2ws, sensors, sensor_IDs=sensor_ids)
+    return verts, faces, mesh, c2ws, sensors, sensor_ids, cams
+
+
 def _census_caps(setups, cfg):
     """Per-level exact census max over ``setups`` and the caps it sizes
     (with level S on, of the L0..L3 lists after its diversion)."""
@@ -789,24 +814,8 @@ def main():
           ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
 
     # -- the bench-scale mesh and the views --------------------------------------
-    verts, faces = make_grid_mesh(
-        n=708, size=4.0, z_fn=lambda x, y: 0.1 * np.sin(3 * x) * np.cos(3 * y)
-    )
-    mesh = TexturedMesh((verts, faces), raster_config=RasterConfig(), device=dev)
-    mesh.spatial_sort_faces()
+    verts, faces, mesh, c2ws, sensors, sensor_ids, cams = _bench_scene(dev)
     n_faces = mesh.n_faces
-
-    c2ws = _suite_cameras()
-    dist = {"k1": 0.02, "k2": -0.01, "p1": 1e-3}
-    # two lens models (pinhole, Brown-Conrady), each at the two focals
-    sensors = {
-        2 * d + j: {"f": fl, "cx": 0.0, "cy": 0.0, "image_width": W,
-                    "image_height": H,
-                    **({"distortion_params": dist} if d else {})}
-        for d in (0, 1) for j, fl in enumerate((2000.0, 2600.0))
-    }
-    sensor_ids = [2 * (k >= 6) + (k % 2) for k in range(len(c2ws))]
-    cams = CameraSet(c2ws, sensors, sensor_IDs=sensor_ids)
 
     # main-path caps from the exact census over every view they serve
     cfg = mesh.raster_config
@@ -1122,7 +1131,12 @@ def main():
              replaces=FACE_SUMS_REPLACES, launches=launches_m["face_sums"],
              max_abs_err=sums_row["max_abs_err"], ms=sums_row["ms"],
              plain_ms=sums_row["plain_ms"], bound_ms=sums_row["bound_ms"],
-             bound_by=sums_row["bound_by"], library_ms=sums_row["library_ms"]),
+             bound_by=sums_row["bound_by"], library_ms=sums_row["library_ms"],
+             # face_to_vert_texture's sum on the mesh's 3F vertex keys
+             vertex_ms=sums_row["vertex"]["ms"],
+             vertex_plain_ms=sums_row["vertex"]["plain_ms"],
+             vertex_bound_ms=sums_row["vertex"]["bound_ms"],
+             vertex_library_ms=sums_row["vertex"]["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1432,8 +1446,11 @@ def _means_phase(mesh, cams, h, w, n_classes, card=None, timing=True):
     """Phase 6m: the means path (a soft image no one-hot scan accepts)
     twice through ``aggregate_projected_images`` on a pinhole and a
     distorted view: the same bits both times; then the ``face_sums``
-    kernel against its plain version on view 0's pix2face, bit for bit,
-    with its times.  Returns (the first run's launches, the kernel's row)."""
+    kernels against their plain version on view 0's pix2face (32 x 32
+    tiles) and on the mesh's 3F vertex keys (``face_to_vert_texture``'s
+    sum, runs of 1024), bit for bit, with their times, ``index_add``'s,
+    and the wrapper's launches by name (profiler; no sort may appear).
+    Returns (the first run's launches, the kernel's row)."""
     dev = mesh.device
     rng = np.random.default_rng(6)
     soft = rng.random((h, w, n_classes), dtype=np.float32)
@@ -1461,25 +1478,63 @@ def _means_phase(mesh, cams, h, w, n_classes, card=None, timing=True):
     p2f, _ = mesh._rasterize_view(cams, 0, 1.0, None, mesh.raster_config)
     keys = p2f.reshape(-1)
     values = torch.as_tensor(soft).to(dev).reshape(-1, n_classes)
-    sums, counts = face_sums.face_sums(keys, values, mesh.n_faces)
-    order, bounds = face_sums.segment_order(keys, mesh.n_faces)
-    sums_p, counts_p = face_sums.face_sums_plain(values, order, bounds)
+    shape = (h, w)
+    sums, counts = face_sums.face_sums(keys, values, mesh.n_faces, shape=shape)
+    sums_p, counts_p = face_sums.face_sums_plain(keys, values, mesh.n_faces, shape)
     _sync(dev)
     if not (torch.equal(sums, sums_p) and torch.equal(counts, counts_p)):
         raise RuntimeError(f"face_sums kernel vs plain: "
                            f"{int((sums != sums_p).sum())} sums differ")
+    # the (face, 32 x 32 tile) partials the kernels merge
+    valid = (keys >= 0) & (keys < mesh.n_faces)
+    pix = torch.arange(keys.numel(), device=dev)
+    tile = pix // w // 32 * -(-w // 32) + pix % w // 32
+    pairs = torch.unique(keys[valid].long() * keys.numel() + tile[valid])
+    per_face = torch.bincount(pairs // keys.numel(), minlength=mesh.n_faces)
     row = dict(max_abs_err=float((sums - sums_p).abs().max()),
                pixels=int(keys.numel()), faces_hit=int((counts[:, 0] > 0).sum()),
-               longest_segment=int((bounds[1:] - bounds[:-1]).max()))
+               longest_segment=int(torch.bincount(keys[valid].long()).max()),
+               partials=int(pairs.numel()), most_partials=int(per_face.max()))
+    # face_to_vert_texture's sum on the mesh: 3F vertex keys, a list
+    faces_dev = torch.as_tensor(mesh.faces, dtype=torch.int64, device=dev)
+    vkeys = faces_dev.reshape(-1)
+    face_values = torch.as_tensor(rng.random((mesh.n_faces, n_classes), dtype=np.float32),
+                                  device=dev)
+    vvalues = face_values.repeat_interleave(3, dim=0).contiguous()
+    vsums, vcounts = face_sums.face_sums(vkeys, vvalues, mesh.n_verts)
+    vsums_p, vcounts_p = face_sums.face_sums_plain(vkeys, vvalues, mesh.n_verts)
+    _sync(dev)
+    if not (torch.equal(vsums, vsums_p) and torch.equal(vcounts, vcounts_p)):
+        raise RuntimeError(f"face_sums kernel vs plain on the vertex keys: "
+                           f"{int((vsums != vsums_p).sum())} sums differ")
+    vertex = dict(keys=int(vkeys.numel()), verts=mesh.n_verts,
+                  max_abs_err=float((vsums - vsums_p).abs().max()))
     if timing:
-        seg = torch.where(keys >= 0, keys.long(), mesh.n_faces)
+        seg = torch.where(valid, keys.long(), mesh.n_faces)
         zeros = torch.zeros((mesh.n_faces + 1, n_classes), device=dev)
         n_bytes = keys.numel() * 4 + values.numel() * 4 + 2 * sums.numel() * 4
+        call = lambda: face_sums.face_sums(keys, values, mesh.n_faces, shape=shape)
         row.update(
-            ms=_cuda_ms(lambda: face_sums.face_sums(keys, values, mesh.n_faces), runs=20),
-            plain_ms=_cuda_ms(lambda: face_sums.face_sums_plain(values, order, bounds)),
+            ms=_cuda_ms(call, runs=20),
+            plain_ms=_cuda_ms(lambda: face_sums.face_sums_plain(
+                keys, values, mesh.n_faces, shape)),
             library_ms=_cuda_ms(lambda: zeros.index_add(0, seg, values), runs=20),
             bound_ms=_bound(n_bytes, 0)[0], bound_by="bytes")
+        # the wrapper's launches by name, device ms a call: no sort kernel
+        row["busy"], row["launch_ms"] = _profile(call)
+        sorts = [k for k in row["launch_ms"] if "sort" in k.lower()]
+        if sorts:
+            raise RuntimeError(f"face_sums launched a sort: {sorts}")
+        vzeros = torch.zeros((mesh.n_verts, n_classes), device=dev)
+        vbytes = vkeys.numel() * 8 + vvalues.numel() * 4 + 2 * vsums.numel() * 4
+        vertex.update(
+            ms=_cuda_ms(lambda: face_sums.face_sums(vkeys, vvalues, mesh.n_verts),
+                        runs=20),
+            plain_ms=_cuda_ms(lambda: face_sums.face_sums_plain(
+                vkeys, vvalues, mesh.n_verts)),
+            library_ms=_cuda_ms(lambda: vzeros.index_add(0, vkeys, vvalues), runs=20),
+            bound_ms=_bound(vbytes, 0)[0])
+    row["vertex"] = vertex
     _line("6m", views=views, runs_equal=True, launches=launches,
           kernel_equals_plain=True, **row, card=card)
     return launches, row

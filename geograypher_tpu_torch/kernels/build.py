@@ -52,9 +52,14 @@ SIGNATURES = {
     "gg_face_class_counts": [_P, _P, _P, _I, _I, _I64, _I, _P],
     # image, class_image, violations, n_pix, n_classes, is_double, stream
     "gg_onehot_class": [_P, _P, _P, _I64, _I, _I, _P],
-    # values, order, bounds, sums, counts, n_segments, n_channels, stream
-    "gg_face_sums": [_P] * 5 + [_I64, _I, _P],
+    # keys, keys_64, values, n, H, W, tw_shift, n_segments, n_channels,
+    # scratch, sums, counts, stream
+    "gg_face_sums": [_P, _I, _P, _I64, _I, _I, _I, _I64, _I, _P, _P, _P, _P],
+    # n, n_segments, n_channels -> bytes
+    "gg_face_sums_scratch_bytes": [_I64, _I64, _I],
 }
+# entry points that return something other than a CUDA error code
+RESTYPES = {"gg_face_sums_scratch_bytes": ctypes.c_int64}
 
 _lib: Optional[ctypes.CDLL] = None
 # seconds the last build took (0.0 when the library was up to date)
@@ -141,7 +146,7 @@ def load() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.gg_error_string.argtypes = [ctypes.c_int]
         lib.gg_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -40,16 +40,19 @@ def project_image_to_faces(
         image: (H, W) or (H, W, C) pixel values; NaNs are ignored.
 
     Returns (sums, counts), each (n_faces, C) float32: the sum and the
-    number of finite pixel values per face.  The sums are added in pixel
-    order within each face (:func:`~geograypher_tpu_torch.ops.face_sums.face_sums`,
-    the ``face_sums`` kernel on the card), so they are the same bits on
-    every run and on every device.
+    number of finite pixel values per face.  The sums run in a fixed order
+    (:func:`~geograypher_tpu_torch.ops.face_sums.face_sums` with the
+    image's shape, the ``face_sums`` kernels on the card): a face's pixels
+    within each 32 x 32 tile in row-major order, then its per-tile partial
+    sums in row-major tile order.  So they are the same bits on every run
+    and on every device.
     """
     if image.ndim == 2:
         image = image[..., None]
     c = image.shape[-1]
     flat_img = image.reshape(-1, c).to(torch.float32).contiguous()
-    sums, counts = face_sums(pix2face.reshape(-1), flat_img, n_faces)
+    sums, counts = face_sums(pix2face.reshape(-1), flat_img, n_faces,
+                             shape=tuple(pix2face.shape) if pix2face.ndim == 2 else None)
     return sums, counts.to(torch.float32)
 
 
@@ -172,9 +175,12 @@ def face_to_vert_texture(
     """Mean of adjacent faces' values per vertex; a face whose row holds a
     non-finite value does not vote.
 
-    The float32 sums run in a fixed order (ascending face id per vertex,
-    :func:`~geograypher_tpu_torch.ops.face_sums.face_sums`), so two runs
-    give the same bits, on the card as on the CPU.
+    The float32 sums run in a fixed order
+    (:func:`~geograypher_tpu_torch.ops.face_sums.face_sums` over the (3F,)
+    vertex keys): a vertex's adjacent faces in ascending face id within
+    each run of 1024 keys (341 faces and a third), then the runs' partial
+    sums in run order.  So two runs give the same bits, on the card as on
+    the CPU.
     """
     if face_values.ndim == 1:
         face_values = face_values[:, None]

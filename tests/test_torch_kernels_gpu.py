@@ -329,11 +329,20 @@ def test_level_s_on_the_card_needs_no_sort(cuda, monkeypatch):
     assert torch.equal(p2f, want) and int(binned.overflow) == 0
 
 
-@pytest.mark.parametrize("n,n_segments,c", [(1, 1, 1), (5000, 300, 3), (3, 10, 1),
-                                            (200000, 30000, 10), (70000, 7, 2)])
-def test_face_sums_kernel_matches_plain(cuda, n, n_segments, c):
-    """The fixed-order sum kernel bit-equal to its plain version and to the
-    CPU's, and two runs equal: keys out of range, NaN and inf included."""
+@pytest.mark.parametrize("n,n_segments,c,shape", [
+    (1, 1, 1, None), (5000, 300, 3, None), (3, 10, 1, None),
+    (200000, 30000, 10, None), (70000, 7, 2, None),
+    # 2-D images: sides no multiples of 32, odd rows (4-byte copies)
+    (333 * 517, 20000, 10, (333, 517)), (480 * 640, 5000, 3, (480, 640)),
+    (255 * 257, 3000, 1, (255, 257)),
+    # more than 16 channels (two chunks); keys past 2^21 (64-bit words)
+    (256 * 256, 100, 20, (256, 256)), (200 * 300, 2**21 + 9, 2, (200, 300)),
+    (50000, 2**21 + 9, 1, None),
+])
+def test_face_sums_kernel_matches_plain(cuda, n, n_segments, c, shape):
+    """The fixed-order sum kernels bit-equal to their plain version and to
+    the CPU's, with int32 and int64 keys, and two runs equal: keys out of
+    range, NaN and inf included."""
     rng = np.random.default_rng(n + c)
     keys = torch.as_tensor(rng.integers(-2, n_segments + 2, n).astype(np.int32))
     values = torch.as_tensor((rng.standard_normal((n, c)) * 1e3).astype(np.float32))
@@ -341,16 +350,46 @@ def test_face_sums_kernel_matches_plain(cuda, n, n_segments, c):
     values[torch.as_tensor(rng.random((n, c)) < 0.01)] = float("inf")
     k, v = keys.to(cuda), values.to(cuda)
     before = face_sums.launches
-    sums, counts = face_sums.face_sums(k, v, n_segments)
+    sums, counts = face_sums.face_sums(k, v, n_segments, shape=shape)
     torch.cuda.synchronize()
     assert face_sums.launches == before + 1
-    order, bounds = face_sums.segment_order(k, n_segments)
-    want_sums, want_counts = face_sums.face_sums_plain(v, order, bounds)
+    want_sums, want_counts = face_sums.face_sums_plain(k, v, n_segments, shape)
     assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
-    again = face_sums.face_sums(k, v, n_segments)
+    again = face_sums.face_sums(k, v, n_segments, shape=shape)
     assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
-    on_cpu = face_sums.face_sums(keys, values, n_segments)
+    wide = face_sums.face_sums(k.long(), v, n_segments, shape=shape)
+    assert torch.equal(wide[0], sums) and torch.equal(wide[1], counts)
+    on_cpu = face_sums.face_sums(keys, values, n_segments, shape=shape)
     assert torch.equal(on_cpu[0], sums.cpu()) and torch.equal(on_cpu[1], counts.cpu())
+
+
+def test_face_sums_long_faces_on_the_card(cuda):
+    """A 4K view where face 0 covers every one of the 8,160 tiles (merged
+    in global scratch), face 1 a 400 x 400 square (169 tiles, merged in
+    shared memory) and small faces the rest: bit-equal to the plain
+    version, two runs equal, and the call under 10 ms."""
+    h, w, c = 2160, 3840, 10
+    rng = np.random.default_rng(9)
+    keys = np.zeros((h, w), np.int32)
+    keys[500:900, 1000:1400] = 1
+    scatter = rng.random((h, w)) < 0.01
+    keys[scatter] = rng.integers(2, 1000, int(scatter.sum()))
+    k = torch.as_tensor(keys.reshape(-1), device=cuda)
+    v = torch.as_tensor(rng.random((h * w, c), dtype=np.float32), device=cuda)
+    sums, counts = face_sums.face_sums(k, v, 1000, shape=(h, w))
+    want_sums, want_counts = face_sums.face_sums_plain(k, v, 1000, (h, w))
+    assert torch.equal(sums, want_sums) and torch.equal(counts, want_counts)
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = face_sums.face_sums(k, v, 1000, shape=(h, w))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+    assert sorted(times)[2] < 10.0, times
 
 
 def test_planned_aggregation_on_the_card(cuda):

@@ -69,7 +69,27 @@ Phases (each prints one line; any failure raises and exits nonzero):
    twice on a pinhole and a distorted view, bit for bit, and the
    ``face_sums`` kernels against their plain version on view 0 and on the
    mesh's 3F vertex keys (``face_to_vert_texture``'s sum), with the
-   wrapper's launches by name (no sort).
+   wrapper's launches by name (no sort);
+7. the survey pipeline (``parallel/pipeline.py``
+   ``aggregate_class_images_distributed``) over 20 4K views of the bench
+   suite (the last five through the Brown-Conrady sensors) at phase 6's
+   configuration and default caps: with a provider of int class images,
+   one launch per view and kernel, no retry, the view counts those of the
+   planner's weighted path on the same labels and the fraction sums to
+   ``PLANNED_MEAN_RTOL``; two runs ``torch.equal``; the default provider
+   (the host argmax of the one-hot images) equal to it; caps (16, 16, 16,
+   16) gated and re-run to the same result; two shards on the one card
+   (the cross-device sum) equal to one to f32 rounding; it prints views/s
+   at 1 and 4 prefetch workers for both providers, the host's seconds
+   waiting on the workers and inside the uploads, the device's busy share
+   over a run (``torch.profiler``), the host argmax in one thread against
+   four, and the launches by kernel; ``"7c"``: ``aggregate_images_chunked``
+   over the same views in two camera clusters whose buffers cover the
+   scene (view counts equal to the unchunked route's), ``render_labels``
+   with ``n_cameras_per_chunk=4`` on phase 5's survey (every PNG equal to
+   phase 5's), and ``sharded_render_aggregate`` on phase 3's 8 views, on
+   one and on two shards, against a loop of the raster chain,
+   ``render_texture`` and ``project_image_to_faces``.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -89,6 +109,7 @@ of its own started in its tree.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import logging
@@ -110,6 +131,7 @@ from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
 from geograypher_tpu_torch.entrypoints.render_labels import render_labels
 from geograypher_tpu_torch.kernels import build
+from geograypher_tpu_torch.meshes import chunked
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
 from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
@@ -131,7 +153,7 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     setup_triangles,
 )
-from geograypher_tpu_torch.parallel import planner
+from geograypher_tpu_torch.parallel import pipeline, planner, sharding
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import PinnedUpload
 from geograypher_tpu_torch.utils.example_data import (
@@ -204,17 +226,22 @@ class ImageSegmentor:
 
 class LabelSegmentor:
     """In-memory integer label images by camera index, served as the
-    float32 one-hot (H, W, C) stacks a segmentation model emits."""
+    float32 one-hot (H, W, C) stacks a segmentation model emits.  With
+    ``names`` a view's labels are found by its image file's name instead,
+    so that a subset of the cameras keeps each view's labels."""
 
     needs_image = False
 
-    def __init__(self, labels: np.ndarray, num_classes: int):
+    def __init__(self, labels: np.ndarray, num_classes: int, names=None):
         self.labels = labels
         self.num_classes = num_classes
         self._eye = np.eye(num_classes, dtype=np.float32)
+        self._row = None if names is None else {n: i for i, n in enumerate(names)}
 
     def segment_image(self, image, filename=None, image_scale: float = 1.0,
                       index=None, **kwargs):
+        if self._row is not None:
+            index = self._row[Path(filename).name]
         return self._eye[self.labels[index]]
 
 
@@ -1053,16 +1080,39 @@ def main():
     census_r, caps_r = _census_caps(pinhole, RasterConfig())
     del pinhole
     _line("setup_r", census=census_r, caps=list(caps_r))
-    launches_r, launches_back = _render_phase(
-        verts, faces, c2ws, sensors, sensor_ids, RasterConfig(caps=caps_r), smi)
-    # -- phase 6: planned aggregation; 6m: the means path ----------------------
-    launches_p, _ = _planned_phase(mesh, cams, seg_cams, labels, N_CLASSES, smi)
-    launches_m, sums_row = _means_phase(mesh, cams, H, W, N_CLASSES, smi)
+    with tempfile.TemporaryDirectory(prefix="gg_smoke_") as folder:
+        survey, launches_r, launches_back = _render_phase(
+            folder, verts, faces, c2ws, sensors, sensor_ids, RasterConfig(caps=caps_r),
+            smi)
+        # -- phase 6: planned aggregation; 6m: the means path ------------------
+        launches_p, _ = _planned_phase(mesh, cams, seg_cams, labels, N_CLASSES, smi)
+        launches_m, sums_row = _means_phase(mesh, cams, H, W, N_CLASSES, smi)
+        # -- phase 7: the survey pipeline, 20 views of the bench suite ---------
+        names_p = [f"view_{k:02d}.png" for k in range(PIPELINE_VIEWS)]
+        cams_p = CameraSet(_suite_cameras(n_views=PIPELINE_VIEWS), sensors,
+                           image_filenames=names_p,
+                           sensor_IDs=_suite_sensor_ids(PIPELINE_VIEWS))
+        labels_p = np.random.default_rng(7).integers(
+            0, N_CLASSES, (PIPELINE_VIEWS, H, W), dtype=np.int8)
+        devices = [torch.device("cuda", 0)] * 2  # two shards on the one card
+        launches_7, _ = _pipeline_phase(mesh, cams_p, labels_p, N_CLASSES, devices, smi)
+        # -- phase 7c: chunked aggregation and rendering, view sharding --------
+        launches_7a, fields_a = _chunked_aggregate_check(
+            mesh, SegmentorCameraSet(cams_p, LabelSegmentor(labels_p, N_CLASSES,
+                                                            names_p)), N_CLASSES)
+        launches_7r, fields_r = _chunked_render_check(survey, RasterConfig(caps=caps_r))
+        launches_7s, fields_s = _sharded_check(mesh, cams, cfg, devices, N_CLASSES)
+        _line("7c", **fields_a, **fields_r, **fields_s, card=smi)
+        del labels_p
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
+    # the kernels' launches on phases 7 and 7c's paths
+    later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
+             + launches_7s[name] for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
-    # level-S path, phase 5's two entry points, phase 6's planned route and
-    # phase 6m's first means run); times and bounds are the kernel-vs-plain
+    # level-S path, phase 5's two entry points, phase 6's planned route,
+    # phase 6m's first means run, phase 7's main run and phase 7c's chunked
+    # aggregation, chunked render and one-device sharded run); times and bounds are the kernel-vs-plain
     # views at the main path's configuration (phase 2's first two views;
     # level S: its two views at the S configuration; face_sums: view 0)
     def mean(rs, key):
@@ -1077,7 +1127,8 @@ def main():
              replaces=TPU_KERNELS["B1"],
              launches=(launches["raster_tiles"] + launches_s["raster_tiles"]
                        + launches_r["raster_tiles"] + launches_back["raster_tiles"]
-                       + launches_p["raster_tiles"] + launches_m["raster_tiles"]),
+                       + launches_p["raster_tiles"] + launches_m["raster_tiles"]
+                       + later["raster_tiles"]),
              max_abs_err=max(r["raster_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "raster_ms"),
              plain_ms=mean(main_rows, "raster_plain_ms"),
@@ -1089,7 +1140,7 @@ def main():
              launches=(launches["face_class_counts"]
                        + launches_s["face_class_counts"]
                        + launches_back["face_class_counts"]
-                       + launches_p["face_class_counts"]),
+                       + launches_p["face_class_counts"] + later["face_class_counts"]),
              max_abs_err=max(r["counts_max_abs_err"] for r in all_rows),
              ms=mean(main_rows, "counts_ms"),
              plain_ms=mean(main_rows, "counts_plain_ms"),
@@ -1108,7 +1159,8 @@ def main():
              turns=ab),
         dict(name="s_raster", route="cuda",
              source="geograypher_tpu_torch/csrc/s_raster.cu",
-             replaces=TPU_KERNELS["B5"], launches=launches_s["s_raster"],
+             replaces=TPU_KERNELS["B5"],
+             launches=launches_s["s_raster"] + later["s_raster"],
              max_abs_err=max(r["s_raster_max_abs_err"] for r in rows_s),
              ms=mean(rows_s, "s_raster_ms"),
              plain_ms=mean(rows_s, "s_raster_plain_ms"),
@@ -1119,7 +1171,7 @@ def main():
              replaces=ONEHOT_REPLACES,
              launches=(launches["onehot_class"] + launches_s["onehot_class"]
                        + launches_back["onehot_class"] + launches_p["onehot_class"]
-                       + launches_m["onehot_class"]),
+                       + launches_m["onehot_class"] + later["onehot_class"]),
              max_abs_err=onehot_row["max_abs_err"], ms=onehot_row["float32"]["ms"],
              plain_ms=onehot_row["float32"]["plain_ms"],
              bound_ms=onehot_row["float32"]["bound_ms"], bound_by="bytes",
@@ -1128,7 +1180,8 @@ def main():
              float64_bound_ms=onehot_row["float64"]["bound_ms"]),
         dict(name="face_sums", route="cuda",
              source="geograypher_tpu_torch/csrc/face_sums.cu",
-             replaces=FACE_SUMS_REPLACES, launches=launches_m["face_sums"],
+             replaces=FACE_SUMS_REPLACES,
+             launches=launches_m["face_sums"] + later["face_sums"],
              max_abs_err=sums_row["max_abs_err"], ms=sums_row["ms"],
              plain_ms=sums_row["plain_ms"], bound_ms=sums_row["bound_ms"],
              bound_by=sums_row["bound_by"], library_ms=sums_row["library_ms"],
@@ -1831,25 +1884,356 @@ def _round_trip(survey, mesh, cfg, device=None, min_agree=ROUND_TRIP_MIN_AGREE):
                 min_agree=min_agree, predicted_without_label=stray)
 
 
-def _render_phase(verts, faces, c2ws, sensors, sensor_ids, cfg, smi):
-    """Phase 5: the render path from a survey on disk, and the round trip.
-    Returns the kernels' launches on the two entry points."""
-    with tempfile.TemporaryDirectory(prefix="gg_smoke_") as folder:
-        survey = _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, W, H)
-        mesh, cams, launches, fields = _render_checked(survey, cfg)
-        times = _render_times(survey, mesh, cams, cfg)
-        _line("5b", **fields, **times, png_zlib_level=PNG_ZLIB_LEVEL, card=smi)
-        raster_tiles.launches = face_counts.launches = onehot.launches = 0
-        trip = _round_trip(survey, mesh, cfg)
-        back = {"raster_tiles": raster_tiles.launches,
-                "face_class_counts": face_counts.launches,
-                "onehot_class": onehot.launches}
-        if any(n != len(c2ws) for n in back.values()):
-            raise RuntimeError(f"round trip launches {back} for {len(c2ws)} views")
-        if "planned" not in (trip["route"] or ""):
-            raise RuntimeError(f"round trip took no planned route: {trip['route']}")
-        _line("5c", **trip, launches=back, card=smi)
-    return launches, back
+def _render_phase(folder, verts, faces, c2ws, sensors, sensor_ids, cfg, smi):
+    """Phase 5: the render path from a survey on disk in ``folder``, and the
+    round trip.  Returns (the survey, the kernels' launches on the two
+    entry points)."""
+    survey = _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, W, H)
+    mesh, cams, launches, fields = _render_checked(survey, cfg)
+    times = _render_times(survey, mesh, cams, cfg)
+    _line("5b", **fields, **times, png_zlib_level=PNG_ZLIB_LEVEL, card=smi)
+    raster_tiles.launches = face_counts.launches = onehot.launches = 0
+    trip = _round_trip(survey, mesh, cfg)
+    back = {"raster_tiles": raster_tiles.launches,
+            "face_class_counts": face_counts.launches,
+            "onehot_class": onehot.launches}
+    if any(n != len(c2ws) for n in back.values()):
+        raise RuntimeError(f"round trip launches {back} for {len(c2ws)} views")
+    if "planned" not in (trip["route"] or ""):
+        raise RuntimeError(f"round trip took no planned route: {trip['route']}")
+    _line("5c", **trip, launches=back, card=smi)
+    return survey, launches, back
+
+
+PIPELINE_VIEWS = 20  # the bench suite's count (bench.py:166-198)
+
+
+def _suite_sensor_ids(n_views):
+    """The suite's lens models: the last quarter of the views through the
+    Brown-Conrady sensors, each view at its focal (sensors of
+    ``_bench_scene``)."""
+    return [2 * (k >= n_views - n_views // 4) + (k % 2) for k in range(n_views)]
+
+
+class _StatsLog(logging.Handler):
+    """The ``pipeline_stats`` of the survey pipeline's log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.stats = []
+
+    def emit(self, record):
+        if hasattr(record, "pipeline_stats"):
+            self.stats.append(record.pipeline_stats)
+
+
+def _run_pipeline(mesh, cams, n_classes, log, **kwargs):
+    """One ``aggregate_class_images_distributed`` call ended by a
+    synchronise: ((fraction_sums, view_counts), seconds, launches,
+    pipeline_stats)."""
+    _reset_launches()
+    out, sec = _timed(mesh.device, lambda: pipeline.aggregate_class_images_distributed(
+        mesh, cams, n_classes, **kwargs))
+    return out, sec, _launches(), log.stats[-1]
+
+
+def _busy_share(fn):
+    """``fn`` once more under ``torch.profiler``: (compute kernels' device
+    ms over the window's ms, the copies' device ms, the window's ms), or
+    Nones when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+    except RuntimeError:  # a card without profiler access: not measured
+        return None, None, None
+    wall_ms = start.elapsed_time(end)
+    kernel_us = copy_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in ev.key.lower() or "memset" in ev.key.lower():
+            copy_us += us
+        else:
+            kernel_us += us
+    if not kernel_us:
+        return None, None, wall_ms
+    return kernel_us / 1e3 / wall_ms, copy_us / 1e3, wall_ms
+
+
+def _argmax_threads(images):
+    """The default provider's host argmax (``nan_to_num`` + ``argmax``) of
+    ``images`` in one thread and in one thread each: seconds of both,
+    which say whether it releases the interpreter lock."""
+    def scan(img):
+        return np.argmax(np.nan_to_num(img), axis=-1)
+
+    t0 = time.perf_counter()
+    for img in images:
+        scan(img)
+    serial = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(len(images)) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(scan, images))
+        threads = time.perf_counter() - t0
+    return serial, threads
+
+
+def _pipeline_phase(mesh, cams, labels, n_classes, devices, card=None,
+                    forced_caps=(16, 16, 16, 16), timing=True):
+    """Phase 7: the survey pipeline (``parallel/pipeline.py``) on the
+    planned phase's binning configuration and the library's default caps.
+
+    With a provider of int class images on ``devices[0]`` (the main path):
+    one launch per view and kernel, no retry, view counts exactly those of
+    the planner's weighted path on the same labels and the fraction sums
+    to ``PLANNED_MEAN_RTOL``; the same call again ``torch.equal``; the
+    default provider (the host argmax of the one-hot images) equal to it;
+    caps ``forced_caps`` gated and re-run to the same view counts; two
+    shards on ``devices`` (one card twice: the cross-device sum) equal to
+    one to f32 rounding.  Returns (the main run's launches, the fields of
+    the phase line)."""
+    dev = mesh.device
+    n = len(cams)
+    cfg = dataclasses.replace(DEFAULT_RASTER_CONFIG, bin_block=8, l0_window=(5, 2),
+                              global_from=mesh.raster_config.global_from)
+    seg = SegmentorCameraSet(cams, LabelSegmentor(labels, n_classes))
+    log = _StatsLog()
+    pipe_logger = logging.getLogger(pipeline.__name__)
+    level = pipe_logger.level
+    pipe_logger.setLevel(logging.INFO)
+    pipe_logger.addHandler(log)
+    try:
+        tri_soa, params, host_labels, h, w, use_dist, _, _ = mesh._planned_inputs(
+            cams, n_classes, None, 1.0, cfg, None, 4, None, labels)
+        ref_sum, ref_count, plan = planner.aggregate_projected_planned(
+            tri_soa, params, host_labels, cfg, h, w, tri_soa.shape[1], n_classes,
+            use_dist=use_dist)
+        ref_sum, ref_count = ref_sum[: mesh.n_faces], ref_count[: mesh.n_faces]
+        one = devices[:1]
+        base = dict(config=cfg, device_mesh=one)
+
+        def provider(i):
+            return labels[i]
+
+        # the main path: int class images from a provider, one device
+        (fr, vc), first_s, launches, first = _run_pipeline(
+            mesh, cams, n_classes, log, class_image_provider=provider,
+            prefetch_workers=4, **base)
+        k = int(torch.device(dev).type == "cuda")  # CPU tensors launch nothing
+        want = {"raster_tiles": n * k, "face_class_counts": n * k, "s_raster": 0,
+                "onehot_class": 0, "face_sums": 0}
+        if launches != want or first["retried_views"]:
+            raise RuntimeError(f"pipeline: launches {launches}, expected {want}, "
+                               f"{first['retried_views']} views re-run")
+        if fr.shape != (mesh.n_faces, n_classes) or not np.isfinite(fr).all():
+            raise RuntimeError(f"pipeline: fraction sums {fr.shape}")
+        if not np.array_equal(vc, ref_count):
+            raise RuntimeError(f"pipeline: view counts differ from the planner's in "
+                               f"{int((vc != ref_count).sum())} faces")
+        rel = float(np.max(np.abs(fr - ref_sum) / np.maximum(np.abs(ref_sum), 1e-30)))
+        if not np.allclose(fr, ref_sum, rtol=PLANNED_MEAN_RTOL, atol=1e-7):
+            raise RuntimeError(f"pipeline: fraction sums off the planner's by {rel}")
+        runs = {}
+        for workers in (4, 1, 4, 1):  # turns: the rate at 4 and 1 workers
+            (fr2, vc2), sec, _, st = _run_pipeline(
+                mesh, cams, n_classes, log, class_image_provider=provider,
+                prefetch_workers=workers, **base)
+            if not (np.array_equal(fr2, fr) and np.array_equal(vc2, vc)):
+                raise RuntimeError(f"pipeline: a second run at {workers} workers differs")
+            runs.setdefault(workers, []).append((sec, st))
+        onehot_runs = {}
+        for workers in (1, 4):
+            (fr3, vc3), sec, _, st = _run_pipeline(
+                mesh, seg, n_classes, log, prefetch_workers=workers, **base)
+            if not (np.array_equal(fr3, fr) and np.array_equal(vc3, vc)):
+                raise RuntimeError("pipeline: the default one-hot provider differs from "
+                                   "the int class images")
+            onehot_runs[workers] = (sec, st)
+        # caps every view overflows: gated, re-censused, re-run
+        (fr4, vc4), forced_s, _, forced = _run_pipeline(
+            mesh, cams, n_classes, log, class_image_provider=provider,
+            device_mesh=one, auto_size_fold=False,
+            config=dataclasses.replace(cfg, caps=tuple(forced_caps)))
+        if (forced["retried_views"] < 1 or not np.array_equal(vc4, vc)
+                or not np.allclose(fr4, fr, rtol=PLANNED_MEAN_RTOL, atol=1e-7)):
+            raise RuntimeError(f"forced caps: {forced['retried_views']} views re-run, "
+                               f"view counts equal {np.array_equal(vc4, vc)}")
+        # two shards on one card: the cross-device sum's code path
+        (fr5, vc5), two_s, two_launches, two = _run_pipeline(
+            mesh, cams, n_classes, log, class_image_provider=provider, config=cfg,
+            device_mesh=devices)
+        two_rel = float(np.max(np.abs(fr5 - fr) / np.maximum(np.abs(fr), 1e-30)))
+        if not np.array_equal(vc5, vc) or not np.allclose(fr5, fr, rtol=1e-6, atol=1e-7):
+            raise RuntimeError(f"two shards against one: view counts equal "
+                               f"{np.array_equal(vc5, vc)}, rel {two_rel}")
+        busy = copy_ms = window_ms = argmax = None
+        if timing and torch.device(dev).type == "cuda":
+            busy, copy_ms, window_ms = _busy_share(
+                lambda: pipeline.aggregate_class_images_distributed(
+                    mesh, cams, n_classes, class_image_provider=provider, **base))
+            argmax = _argmax_threads([seg.get_image_by_index(i) for i in range(4)])
+    finally:
+        pipe_logger.removeHandler(log)
+        pipe_logger.setLevel(level)
+
+    def rate(entries):
+        return [round(n / sec, 4) for sec, _ in entries]
+
+    def host(st):
+        return {key: round(st[key], 4) for key in
+                ("fetch_wait_s", "upload_s", "upload_wait_s", "plan_s", "seconds")}
+
+    fields = dict(
+        views=n, image=[h, w], faces=mesh.n_faces, classes=n_classes,
+        devices=[str(d) for d in one], config=dict(
+            bin_block=cfg.bin_block, l0_window=list(cfg.l0_window),
+            caps_given=list(cfg.caps)),
+        buckets=[dict(caps=list(b.config.caps), views=len(b.view_indices))
+                 for b in plan.buckets],
+        use_dist=use_dist, launches=launches, retried_views=first["retried_views"],
+        first_s=round(first_s, 4), first_views_per_s=round(n / first_s, 4),
+        first_host=host(first), view_counts_equal_planner=True,
+        fraction_sums_max_rel_err=rel, runs_equal=True,
+        provider_views_per_s={w_: rate(runs[w_]) for w_ in (1, 4)},
+        provider_host={w_: host(runs[w_][-1][1]) for w_ in (1, 4)},
+        onehot_views_per_s={w_: round(n / onehot_runs[w_][0], 4) for w_ in (1, 4)},
+        onehot_host={w_: host(onehot_runs[w_][1]) for w_ in (1, 4)},
+        host_argmax_s=None if argmax is None else dict(
+            views=4, one_thread=round(argmax[0], 4), four_threads=round(argmax[1], 4)),
+        device_busy_share=None if busy is None else round(busy, 4),
+        copy_device_ms=None if copy_ms is None else round(copy_ms, 3),
+        profiled_window_ms=None if window_ms is None else round(window_ms, 3),
+        forced_caps=list(forced_caps), forced_retried_views=forced["retried_views"],
+        forced_s=round(forced_s, 4), forced_equal=True,
+        two_shards=[str(d) for d in devices], two_shards_s=round(two_s, 4),
+        two_shards_launches=two_launches, two_shards_max_rel_err=two_rel,
+        two_shards_view_counts_equal=True, card=card)
+    _line(7, **fields)
+    return launches, fields
+
+
+def _chunked_aggregate_check(mesh, seg, n_classes):
+    """Phase 7c, part 1: ``aggregate_images_chunked`` over the pipeline's
+    views (``seg``'s segmentor must find a view's labels in a subset of
+    the cameras), two camera clusters each with a buffer over the scene:
+    the view counts exactly the unchunked route's, the mean to
+    ``PLANNED_MEAN_RTOL``.  Returns (the chunked run's launches, fields)."""
+    dev = mesh.device
+    cfg = dataclasses.replace(DEFAULT_RASTER_CONFIG, bin_block=8, l0_window=(5, 2),
+                              global_from=mesh.raster_config.global_from)
+    (avg, info), whole_s = _timed(dev, lambda: mesh.aggregate_projected_images(
+        seg, config=cfg))
+    _reset_launches()
+    (c_avg, c_info), chunked_s = _timed(dev, lambda: chunked.aggregate_images_chunked(
+        mesh, seg, n_clusters=2, buffer_meters=1e3, config=cfg))
+    launches = _launches()
+    counts, c_counts = info["projection_counts"], c_info["projection_counts"]
+    if not np.array_equal(c_counts, counts):
+        raise RuntimeError(f"chunked aggregation: view counts differ in "
+                           f"{int((c_counts != counts).sum())} faces")
+    seen = counts > 0
+    rel = float(np.max(np.abs(c_avg[seen] - avg[seen])
+                       / np.maximum(np.abs(avg[seen]), 1e-30)))
+    if not np.allclose(c_avg, avg, rtol=PLANNED_MEAN_RTOL, atol=1e-7, equal_nan=True):
+        raise RuntimeError(f"chunked aggregation: mean off the unchunked one by {rel}")
+    clusters = chunked.cluster_cameras(seg, 2)
+    return launches, dict(
+        clusters=[len(c) for c in clusters], whole_route=("plan" in info),
+        unchunked_s=round(whole_s, 4), chunked_s=round(chunked_s, 4),
+        chunked_launches=launches, view_counts_equal=True, mean_max_rel_err=rel)
+
+
+def _chunked_render_check(survey, cfg, device=None):
+    """Phase 7c, part 2: ``render_labels(n_cameras_per_chunk=4)`` on phase
+    5's survey on disk: every PNG equal to phase 5's unchunked one.
+    Returns (its launches, fields)."""
+    on = {} if device is None else {"device": device}
+    out = survey["render_folder"].parent / "renders_chunked"
+    _reset_launches()
+    t0 = time.perf_counter()
+    render_labels(survey["mesh_file"], survey["cameras_file"], survey["image_folder"],
+                  texture=survey["labels_file"], texture_column_name="species",
+                  render_savefolder=out, raster_config=cfg, n_cameras_per_chunk=4,
+                  **on)
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    files = sorted(p.name for p in out.iterdir())
+    if files != survey["names"]:
+        raise RuntimeError(f"chunked render_labels wrote {files}")
+    for name in files:
+        if not np.array_equal(read_image_or_numpy(out / name),
+                              read_image_or_numpy(survey["render_folder"] / name)):
+            raise RuntimeError(f"chunked render: {name} differs from the unchunked mask")
+    return launches, dict(render_files=len(files), render_files_equal=True,
+                          render_wall_s=round(wall_s, 3), render_launches=launches)
+
+
+def _sharded_check(mesh, cams, cfg, devices, n_classes):
+    """Phase 7c, part 3: ``sharded_render_aggregate`` of a seeded per-face
+    class texture over ``cams`` (pinhole), on ``devices[:1]`` and on
+    ``devices``, against a loop of the mesh's raster chain +
+    ``render_texture`` + ``project_image_to_faces``: view counts exactly,
+    sums to f32 rounding.  Returns (the one-device run's launches,
+    fields)."""
+    dev = mesh.device
+    h = cams.sensors[cams.sensor_IDs[0]]["image_height"]
+    w = cams.sensors[cams.sensor_IDs[0]]["image_width"]
+    soa = mesh._tri_soa_device(cams, cfg.bin_block)
+    batch = cams.get_camera_batch(device=dev)
+    setups = [setup_from_soa(soa, batch.world_to_cam[i], batch.f[i], w, h, cfg.znear)
+              for i in range(len(cams))]
+    census = torch.stack([bin_triangles(s, cfg, h, w, return_census=True)
+                          for s in setups]).amax(0).tolist()
+    cfg = dataclasses.replace(cfg, caps=tuple(int(math.ceil(c * CAP_MARGIN)) + 8
+                                              for c in census))
+    del setups
+    tex = np.random.default_rng(7).integers(0, n_classes, (mesh.n_faces, 1)).astype(
+        np.float32)
+    tex_dev = torch.as_tensor(tex, device=dev)
+    state = init_aggregation(mesh.n_faces, 1, dev)
+    for i in range(len(cams)):
+        p2f, over = mesh._rasterize_view(cams, i, 1.0, False, cfg)
+        if int(over):
+            raise RuntimeError(f"sharded check: view {i} overflows {cfg.caps}")
+        state = accumulate_view(state, *project_image_to_faces(
+            p2f, render_texture(p2f, tex_dev), mesh.n_faces))
+    ref_sum, ref_count = state.value_sum.cpu().numpy(), state.view_count.cpu().numpy()
+    tri = mesh.get_tri_verts_device(cams, 1)
+    w2c = batch.world_to_cam.cpu().numpy()
+    f = batch.f.cpu().numpy()
+    out = {}
+    for name, devs in (("one", devices[:1]), ("two", devices)):
+        view_mesh = sharding.make_view_mesh(devs)
+        shards = sharding.shard_views_for_mesh(w2c, f, view_mesh)
+        _reset_launches()
+        (vsum, vcount), sec = _timed(dev, lambda: sharding.sharded_render_aggregate(
+            tri, tex, *shards, image_w=w, image_h=h, n_faces=mesh.n_faces,
+            config=cfg, mesh=view_mesh))
+        vsum, vcount = vsum.cpu().numpy(), vcount.cpu().numpy()
+        rel = float(np.max(np.abs(vsum - ref_sum) / np.maximum(np.abs(ref_sum), 1e-30)))
+        if not np.array_equal(vcount, ref_count) or not np.allclose(
+                vsum, ref_sum, rtol=1e-6, atol=1e-7):
+            raise RuntimeError(f"sharded_render_aggregate on {name} device(s): view "
+                               f"counts equal {np.array_equal(vcount, ref_count)}, "
+                               f"rel {rel}")
+        seen = ref_count > 0
+        if not np.allclose(vsum[seen, 0] / vcount[seen], tex[seen, 0], rtol=1e-6):
+            raise RuntimeError("sharded_render_aggregate: a seen face's mean is not "
+                               "its texture")
+        out[name] = dict(devices=[str(d) for d in devs], seconds=round(sec, 4),
+                         launches=_launches(), max_rel_err=rel,
+                         bit_equal=bool(np.array_equal(vsum, ref_sum)))
+    return out["one"]["launches"], dict(
+        sharded_views=len(cams), sharded_caps=list(cfg.caps),
+        sharded_seen_faces=int((ref_count > 0).sum()), sharded=out)
 
 
 if __name__ == "__main__":

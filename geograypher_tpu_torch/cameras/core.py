@@ -13,6 +13,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,6 +29,9 @@ from geograypher_tpu_torch.utils.vector import (
     VectorData,
     points_near_polygons,
 )
+
+# guards every camera set's raw-image cache (a few dict operations a read)
+_IMAGE_CACHE_LOCK = threading.Lock()
 
 # Distortion parameter vector layout (Brown-Conrady, Metashape order).
 DISTORTION_KEYS = ("k1", "k2", "k3", "k4", "p1", "p2", "b1", "b2")
@@ -375,19 +379,22 @@ class CameraSet:
         fname = self.get_image_filename(index)
         if fname is None:
             raise FileNotFoundError(f"Camera {index} has no image filename")
-        cache = getattr(self, "_image_cache", None)
-        if cache is None:
-            cache = self._image_cache = collections.OrderedDict()
         key = str(fname)
-        if key in cache:
-            cache.move_to_end(key)
-            img = cache[key]
-        else:
+        # the survey pipeline's worker threads read images concurrently
+        with _IMAGE_CACHE_LOCK:
+            cache = getattr(self, "_image_cache", None)
+            if cache is None:
+                cache = self._image_cache = collections.OrderedDict()
+            img = cache.get(key)
+            if img is not None:
+                cache.move_to_end(key)
+        if img is None:
             img = read_image_or_numpy(fname)
             if self.image_cache_size > 0:
-                cache[key] = img
-                while len(cache) > self.image_cache_size:
-                    cache.popitem(last=False)
+                with _IMAGE_CACHE_LOCK:
+                    cache[key] = img
+                    while len(cache) > self.image_cache_size:
+                        cache.popitem(last=False)
         if image_scale != 1.0:
             new_w = int(img.shape[1] * image_scale)
             new_h = int(img.shape[0] * image_scale)

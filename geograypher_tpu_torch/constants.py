@@ -20,3 +20,6 @@ EXAMPLE_INTRINSICS = {
     "image_width": 800,
     "image_height": 600,
 }
+
+# buffer around a camera cluster's footprint for a chunk's sub-mesh
+CHUNKED_MESH_BUFFER_DIST_METERS = 125.0

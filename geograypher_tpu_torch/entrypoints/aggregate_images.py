@@ -1,12 +1,16 @@
 """aggregate_images: project per-image predictions onto the mesh.
 
-Port of the single-device path of
-``geograypher_tpu/entrypoints/aggregate_images.py``:
+Port of ``geograypher_tpu/entrypoints/aggregate_images.py``:
 MetashapeCameraSet (+ subsetting) -> LookUpSegmentor-wrapped cameras ->
-TexturedMesh.aggregate_projected_images on ``device`` (the planned route
-for large one-hot surveys) -> per-face argmax, NaN for faces no view saw.  Clustered aggregation, the DTM ground relabel
-and the vector export raise ``NotImplementedError`` naming their ROADMAP
-items.
+one of three routes, as in the JAX package -> per-face argmax, NaN for
+faces no view saw.  The routes: camera clusters, one buffered sub-mesh
+each (``meshes/chunked.py``), when ``n_aggregation_clusters`` or
+``n_cameras_per_aggregation_cluster`` is given; else, on a CUDA device of
+a machine with more than one card, the survey pipeline over every card
+(``parallel/pipeline.py``); else ``TexturedMesh.aggregate_projected_images``
+on ``device`` (the planned route for large one-hot surveys).  The DTM
+ground relabel and the vector export raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ from geograypher_tpu_torch.utils.files import ensure_containing_folder
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
+from geograypher_tpu_torch.meshes.chunked import aggregate_images_chunked
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.ops.aggregate import find_argmax_nonzero_value
 from geograypher_tpu_torch.ops.rasterize import RasterConfig
+from geograypher_tpu_torch.parallel.pipeline import aggregate_class_images_distributed
 
 
 def aggregate_images(
@@ -58,7 +64,8 @@ def aggregate_images(
     """Aggregate per-image labels from multiple viewpoints onto the mesh.
 
     Arguments as in ``geograypher_tpu.entrypoints.aggregate_images``;
-    ``device`` is where the per-view work runs.  A survey of one-hot label
+    ``device`` is where the per-view work runs; the route is chosen as the
+    module docstring says.  On the mesh's route a survey of one-hot label
     images past ``TexturedMesh._PLANNED_MIN_PIXELS`` takes the planned
     route (``parallel/planner.py``), which sizes each view's tile-list
     caps from a census and re-runs a view that overflows them.  The
@@ -67,10 +74,6 @@ def aggregate_images(
     overflows raises after the last view.  Returns (predicted_face_classes
     (F,), average_projections (F, C)).
     """
-    if n_aggregation_clusters is not None or n_cameras_per_aggregation_cluster:
-        raise NotImplementedError(
-            "clustered (chunked) aggregation is not ported yet (ROADMAP A11)"
-        )
     if DTM_file is not None:
         raise NotImplementedError(
             "the DTM ground relabel is not ported yet (ROADMAP A6)"
@@ -117,10 +120,32 @@ def aggregate_images(
         lookup_folder=label_folder,
         num_classes=n_classes,
     )
-    average_projections, info = mesh.aggregate_projected_images(
-        SegmentorCameraSet(camera_set, segmentor),
-        aggregate_img_scale=aggregate_image_scale,
-    )
+    seg_cameras = SegmentorCameraSet(camera_set, segmentor)
+    if n_aggregation_clusters is None and n_cameras_per_aggregation_cluster:
+        n_aggregation_clusters = max(
+            len(camera_set) // n_cameras_per_aggregation_cluster, 1
+        )
+    if (n_aggregation_clusters is None and mesh.device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        # more than one card: views dealt over all of them, loading and
+        # uploads overlapped with the kernels
+        frac_sums, views = aggregate_class_images_distributed(
+            mesh, seg_cameras, n_classes=n_classes,
+            aggregate_img_scale=aggregate_image_scale,
+        )
+        with np.errstate(invalid="ignore", divide="ignore"):
+            average_projections = frac_sums / views[:, None]
+        average_projections[views == 0] = np.nan
+        info = {"projection_counts": views, "summed_projections": frac_sums}
+    elif n_aggregation_clusters is not None:
+        average_projections, info = aggregate_images_chunked(
+            mesh, seg_cameras, n_clusters=n_aggregation_clusters,
+            aggregate_img_scale=aggregate_image_scale,
+        )
+    else:
+        average_projections, info = mesh.aggregate_projected_images(
+            seg_cameras, aggregate_img_scale=aggregate_image_scale
+        )
 
     if aggregated_face_values_savefile is not None:
         ensure_containing_folder(aggregated_face_values_savefile)
@@ -160,6 +185,8 @@ def parse_args():
     parser.add_argument("--mesh-downsample", type=float, default=1.0)
     parser.add_argument("--n-classes", type=int, default=None)
     parser.add_argument("--n-aggregation-clusters", type=int, default=None)
+    parser.add_argument("--n-cameras-per-aggregation-cluster", type=int,
+                        default=None)
     parser.add_argument("--aggregate-image-scale", type=float, default=1.0)
     parser.add_argument("--aggregated-face-values-savefile", default=None)
     parser.add_argument("--predicted-face-classes-savefile", default=None)

@@ -6,9 +6,10 @@ surface plus ``device`` and ``raster_config``: texture the mesh from a
 vector label file (or an array, a .npy file, a scalar of the mesh file),
 crop mesh and cameras to the labeled region, render per-camera masks with
 occlusion-correct z-buffering on ``device`` and save them as PNG files
-named after the images.  The DTM ground relabel, chunked rendering,
-composites and ``vis`` raise ``NotImplementedError`` naming their ROADMAP
-items.
+named after the images; with ``n_cameras_per_chunk``, camera cluster by
+camera cluster, each from its own buffered sub-mesh
+(``meshes/chunked.py``).  The DTM ground relabel, composites and ``vis``
+raise ``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ import numpy as np
 
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.constants import PATH_TYPE
+from geograypher_tpu_torch.meshes.chunked import render_flat_chunked
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.ops.rasterize import RasterConfig
 from geograypher_tpu_torch.utils.files import ensure_folder
+from geograypher_tpu_torch.utils.io import write_image
 
 VECTOR_SUFFIXES = (".geojson", ".json", ".gpkg", ".shp")
 
@@ -67,10 +70,6 @@ def render_labels(
     if DTM_file is not None and ground_height_threshold is not None:
         raise NotImplementedError(
             "the DTM ground relabel is not ported yet (ROADMAP A6)"
-        )
-    if n_cameras_per_chunk is not None:
-        raise NotImplementedError(
-            "chunked rendering is not ported yet (ROADMAP A11)"
         )
     if make_composites or vis:
         raise NotImplementedError(
@@ -121,12 +120,27 @@ def render_labels(
     if textured_mesh_savefile is not None:
         mesh.save_mesh(textured_mesh_savefile)
 
-    mesh.save_renders(
-        camera_set,
-        render_image_scale=render_image_scale,
-        output_folder=render_savefolder,
-        save_native_resolution=save_native_resolution,
-    )
+    if n_cameras_per_chunk is not None:
+        # the JAX package's chunked writer: the first channel, NaN -> 255,
+        # at the render's scale
+        for img, cam in render_flat_chunked(
+            mesh,
+            camera_set,
+            n_cameras_per_chunk=n_cameras_per_chunk,
+            render_img_scale=render_image_scale,
+        ):
+            fname = cam.image_filenames[0]
+            out = Path(render_savefolder) / (fname.name if fname else "render.png")
+            data = np.where(np.isfinite(img[..., 0]), img[..., 0], 255.0)
+            write_image(out.with_suffix(".png"),
+                        np.clip(data, 0, 255).astype(np.uint8))
+    else:
+        mesh.save_renders(
+            camera_set,
+            render_image_scale=render_image_scale,
+            output_folder=render_savefolder,
+            save_native_resolution=save_native_resolution,
+        )
     return mesh, camera_set
 
 

@@ -12,9 +12,12 @@ Large surveys of one-hot label images aggregate through the
 census-bucketed planner (``parallel/planner.py``): caps sized per view
 from a census, overflowing views re-sized and re-run instead of raising.
 
+Chunked aggregation and rendering live in ``meshes/chunked.py``, the
+survey pipeline over a list of devices in ``parallel/pipeline.py``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): raster (GeoTIFF) textures, the DTM ground relabel and the polygon
-exports (A6), chunked rendering and batched views (A11).
+exports (A6).
 """
 
 from __future__ import annotations
@@ -79,6 +82,13 @@ logger = logging.getLogger(__name__)
 DEFAULT_RASTER_CONFIG = RasterConfig(caps=(512, 128, 64, 64))
 
 
+def _check_batch_size(batch_size: int) -> None:
+    """``batch_size`` of the per-view loops: any count >= 1, which the
+    loops, as the JAX package's, do not use."""
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+
+
 class TexturedMesh:
     """A triangle mesh in a geospatial frame whose per-view work runs on
     ``device``.
@@ -130,6 +140,8 @@ class TexturedMesh:
         self.face_texture: typing.Optional[np.ndarray] = None
         self._tri_cache: dict = {}
         self._agg_plan_cache: dict = {}  # AggregationPlan per survey key
+        # the survey pipeline's plans (parallel/pipeline.py), by its key
+        self._pipeline_cfg_cache: dict = {}
         self._local_transform = None  # set when georeferenced
         self._mesh_attrs: dict = {}
         self.distortion_engine = DistortionEngine(self.device)
@@ -216,10 +228,11 @@ class TexturedMesh:
 
     def _invalidate_geometry_caches(self) -> None:
         """Drop every geometry-derived device cache after a geometry edit
-        (crop / sort / downsample): the triangle caches, and the
-        distortion maps kept beside them."""
+        (crop / sort / downsample): the triangle caches, the plans sized
+        from them, and the distortion maps kept beside them."""
         self._tri_cache.clear()
         self._agg_plan_cache.clear()
+        self._pipeline_cfg_cache.clear()
         self.distortion_engine.clear()
 
     # -- geometry -------------------------------------------------------------
@@ -875,13 +888,11 @@ class TexturedMesh:
         """Generator of per-camera rendered texture images, (H, W, C)
         float32 numpy, NaN where no face is seen (and where the face has
         no label).  ``pix2face_kwargs``: ``apply_distortion``, ``config``,
-        ``save_to_cache``, ``cache_folder``.  Raises after the last view
-        if any view's tile lists dropped candidates."""
-        if batch_size != 1:
-            raise NotImplementedError(
-                "batched views are not ported yet (ROADMAP A11); the loop "
-                "runs one view at a time, pass batch_size=1"
-            )
+        ``save_to_cache``, ``cache_folder``.  ``batch_size`` (>= 1) is
+        accepted and, as in the JAX package, changes nothing: views run one
+        at a time.  Raises after the last view if any view's tile lists
+        dropped candidates."""
+        _check_batch_size(batch_size)
         worst = torch.zeros((), dtype=torch.int64, device=self.device)
         for i, (img, overflow) in enumerate(self._render_flat_device(
                 cameras, render_img_scale, pix2face_kwargs)):
@@ -932,13 +943,10 @@ class TexturedMesh:
         images keep per-channel means over the view's pix2face (for a
         distorted sensor the pinhole render remapped into its geometry).  After
         the last view it raises if any view's tile lists dropped
-        candidates.
+        candidates.  ``batch_size`` (>= 1) is accepted and, as in the JAX
+        package, changes nothing: views run one at a time.
         """
-        if batch_size != 1:
-            raise NotImplementedError(
-                "batched views are not ported yet (ROADMAP A11); the loop "
-                "runs one view at a time, pass batch_size=1"
-            )
+        _check_batch_size(batch_size)
         config = pix2face_kwargs.get("config") or self.raster_config
         apply_distortion = pix2face_kwargs.get("apply_distortion")
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -1011,9 +1019,11 @@ class TexturedMesh:
         ``return_all=True``, keep the per-view streaming loop, which raises
         after the last view if a view's tile lists dropped candidates.
 
+        ``batch_size`` (>= 1) changes nothing, as in the JAX package.
         Returns (average_projections (F, C) numpy, additional_information
         dict).
         """
+        _check_batch_size(batch_size)
         if use_planned is not False and not return_all:
             routed = self._route_projected_planned(
                 cameras, aggregate_img_scale, kwargs,
@@ -1197,17 +1207,8 @@ class TexturedMesh:
         params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
         if labels is None:
             if class_image_provider is None:
-
-                def class_image_provider(i: int) -> np.ndarray:
-                    img = np.asarray(
-                        cameras.get_image_by_index(i, aggregate_img_scale)
-                    )
-                    if img.ndim == 3:
-                        finite = np.isfinite(img).all(axis=-1)
-                        cls = np.argmax(np.nan_to_num(img), axis=-1)
-                        return np.where(finite, cls, -1)
-                    return np.nan_to_num(img, nan=-1).astype(np.int64)
-
+                class_image_provider = _planner.default_class_image_provider(
+                    cameras, aggregate_img_scale)
             labels = np.empty((n, h, w), _planner.label_dtype(n_classes))
             for i in range(n):
                 labels[i] = _planner.as_label_dtype(class_image_provider(i),

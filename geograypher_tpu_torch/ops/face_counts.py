@@ -84,11 +84,13 @@ def face_class_counts(
     counts = torch.zeros((n_faces, n_classes), dtype=torch.int32,
                          device=pix2face.device)
     lib = build.load()
-    err = lib.gg_face_class_counts(
-        pix2face.data_ptr(), class_image.data_ptr(), counts.data_ptr(),
-        pix2face.shape[0], pix2face.shape[1], n_faces, n_classes,
-        build.stream_ptr(pix2face.device),
-    )
+    # launched under the tensor's device, whose stream it is given
+    with torch.cuda.device(pix2face.device):
+        err = lib.gg_face_class_counts(
+            pix2face.data_ptr(), class_image.data_ptr(), counts.data_ptr(),
+            pix2face.shape[0], pix2face.shape[1], n_faces, n_classes,
+            build.stream_ptr(pix2face.device),
+        )
     build.check(err, "gg_face_class_counts")
     launches += 1
     return counts

@@ -159,11 +159,13 @@ def face_sums(keys: torch.Tensor, values: torch.Tensor, n_segments: int,
     lib = build.load()
     scratch = torch.empty(lib.gg_face_sums_scratch_bytes(n, n_segments, c),
                           dtype=torch.uint8, device=values.device)
-    err = lib.gg_face_sums(
-        keys.data_ptr(), int(keys.dtype == torch.int64), values.data_ptr(), n, h, w,
-        tw.bit_length() - 1, n_segments, c, scratch.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), build.stream_ptr(values.device),
-    )
+    # launched under the tensor's device, whose stream it is given
+    with torch.cuda.device(values.device):
+        err = lib.gg_face_sums(
+            keys.data_ptr(), int(keys.dtype == torch.int64), values.data_ptr(), n, h, w,
+            tw.bit_length() - 1, n_segments, c, scratch.data_ptr(), sums.data_ptr(),
+            counts.data_ptr(), build.stream_ptr(values.device),
+        )
     build.check(err, "gg_face_sums")
     launches += 1
     return sums, counts

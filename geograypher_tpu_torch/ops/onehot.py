@@ -82,11 +82,13 @@ def onehot_to_class(image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     # zeroed by the C entry on the stream before its kernel
     violations = torch.empty((), dtype=torch.int32, device=image.device)
     lib = build.load()
-    err = lib.gg_onehot_class(
-        image.data_ptr(), cls.data_ptr(), violations.data_ptr(),
-        cls.numel(), n_classes, int(image.dtype == torch.float64),
-        build.stream_ptr(image.device),
-    )
+    # launched under the tensor's device, whose stream it is given
+    with torch.cuda.device(image.device):
+        err = lib.gg_onehot_class(
+            image.data_ptr(), cls.data_ptr(), violations.data_ptr(),
+            cls.numel(), n_classes, int(image.dtype == torch.float64),
+            build.stream_ptr(image.device),
+        )
     build.check(err, "gg_onehot_class")
     launches += 1
     return cls, violations

@@ -360,19 +360,21 @@ def raster_tiles(
     out = torch.empty((image_h, image_w), dtype=torch.int32,
                       device=planes.device)
     lib = build.load()
-    err = lib.gg_raster_tiles(
-        planes.data_ptr(),
-        bbox.data_ptr(),
-        *[c.data_ptr() for c in cand],
-        *[n.data_ptr() for n in counts],
-        *((None, None) if s_init is None else (t.data_ptr() for t in s_init)),
-        out.data_ptr(),
-        planes.shape[0],
-        image_h, image_w, th, tw, nty0, ntx0, nty1, ntx1, nty2, ntx2,
-        config.level_scales[1], config.level_scales[2],
-        *[c.shape[1] for c in cand],
-        build.stream_ptr(planes.device),
-    )
+    # launched under the tensor's device, whose stream it is given
+    with torch.cuda.device(planes.device):
+        err = lib.gg_raster_tiles(
+            planes.data_ptr(),
+            bbox.data_ptr(),
+            *[c.data_ptr() for c in cand],
+            *[n.data_ptr() for n in counts],
+            *((None, None) if s_init is None else (t.data_ptr() for t in s_init)),
+            out.data_ptr(),
+            planes.shape[0],
+            image_h, image_w, th, tw, nty0, ntx0, nty1, ntx1, nty2, ntx2,
+            config.level_scales[1], config.level_scales[2],
+            *[c.shape[1] for c in cand],
+            build.stream_ptr(planes.device),
+        )
     build.check(err, "gg_raster_tiles")
     launches += 1
     return out

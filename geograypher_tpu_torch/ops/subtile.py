@@ -354,12 +354,14 @@ def s_raster(su: SubtileUnits, setup, config, image_h: int, image_w: int):
     best_id = torch.empty((image_h, image_w), dtype=torch.int32,
                           device=planes.device)
     lib = build.load()
-    err = lib.gg_s_raster(
-        planes.data_ptr(), bbox.data_ptr(), cells.data_ptr(), s_unit.data_ptr(),
-        keys.data_ptr(), best_w.data_ptr(), best_id.data_ptr(),
-        n_faces, image_h, image_w, sh, sw, config.s_block,
-        build.stream_ptr(planes.device),
-    )
+    # launched under the tensor's device, whose stream it is given
+    with torch.cuda.device(planes.device):
+        err = lib.gg_s_raster(
+            planes.data_ptr(), bbox.data_ptr(), cells.data_ptr(), s_unit.data_ptr(),
+            keys.data_ptr(), best_w.data_ptr(), best_id.data_ptr(),
+            n_faces, image_h, image_w, sh, sw, config.s_block,
+            build.stream_ptr(planes.device),
+        )
     build.check(err, "gg_s_raster")
     launches += 1
     return best_w, best_id

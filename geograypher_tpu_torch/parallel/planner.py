@@ -314,6 +314,22 @@ def plan_aggregation(
 # ---------------------------------------------------------------------------
 
 
+def default_class_image_provider(cameras, image_scale: float):
+    """The JAX package's default class-image provider: the host argmax of
+    each view's image, -1 where a row is not all finite; a 2-D image is
+    taken as class ids with NaN -> -1."""
+
+    def provider(i: int) -> np.ndarray:
+        img = np.asarray(cameras.get_image_by_index(i, image_scale))
+        if img.ndim == 3:
+            finite = np.isfinite(img).all(axis=-1)
+            cls = np.argmax(np.nan_to_num(img), axis=-1)
+            return np.where(finite, cls, -1).astype(np.int32)
+        return np.nan_to_num(img, nan=-1).astype(np.int32)
+
+    return provider
+
+
 def label_dtype(n_classes: int) -> np.dtype:
     """Host dtype of a class-image stack: int8 when class ids fit."""
     return np.dtype(np.int8 if n_classes <= 127 else np.int32)
@@ -327,6 +343,24 @@ def as_label_dtype(labels: np.ndarray, n_classes: int) -> np.ndarray:
     if labels.dtype.itemsize > dtype.itemsize:
         labels = np.where((labels >= 0) & (labels < n_classes), labels, -1)
     return labels.astype(dtype, copy=False)
+
+
+def add_view_gated(accs, counts: torch.Tensor, over: torch.Tensor,
+                   weighted: bool) -> None:
+    """Add one view's (F, C) class counts into the accumulators in place,
+    gated on its overflow (a view whose lists dropped candidates adds
+    nothing).  Pooled: ``accs = (counts,)``.  Weighted: ``accs =
+    (value_sum, view_count)``, the view's per-face class fraction counts /
+    total and a 1 for every face it saw."""
+    ok = over == 0
+    if weighted:
+        tot = counts.sum(dim=1, keepdim=True)
+        seen = tot > 0
+        mean = torch.where(seen, counts / torch.clamp(tot, min=1.0), 0.0)
+        accs[0].add_(torch.where(ok, mean, 0.0))
+        accs[1].add_((ok & seen[:, 0]).to(torch.float32))
+    else:
+        accs[0].add_(torch.where(ok, counts, 0.0))
 
 
 class PlannedAggregator:
@@ -425,16 +459,7 @@ class PlannedAggregator:
                     row[25], row[26], labels[k], plan.image_w, plan.image_h,
                     config, plan.n_faces, self.n_classes, plan.use_dist,
                 )
-                ok = over == 0
-                if self.weighted:
-                    tot = counts.sum(dim=1, keepdim=True)
-                    seen = tot > 0
-                    mean = torch.where(seen, counts / torch.clamp(tot, min=1.0),
-                                       0.0)
-                    self._accs[0].add_(torch.where(ok, mean, 0.0))
-                    self._accs[1].add_((ok & seen[:, 0]).to(torch.float32))
-                else:
-                    self._accs[0].add_(torch.where(ok, counts, 0.0))
+                add_view_gated(self._accs, counts, over, self.weighted)
                 overs.append((pos, view, over))
         return overs
 

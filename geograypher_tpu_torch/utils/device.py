@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import time
 import typing
 
 import numpy as np
@@ -23,30 +24,56 @@ def resolve_device(device, caller: str) -> torch.device:
 
 
 class PinnedUpload:
-    """Host arrays to ``device`` through one page-locked staging buffer,
-    allocated at the first upload and grown when a larger array comes: the
-    copy into it and the DMA out of it together take a third to a half of
-    the time of a pageable ``.to(device)`` for a 4K one-hot stack.  Before
-    it overwrites the buffer it waits for the last copy out of it to end.
-    On a CPU device the array is wrapped as it is."""
+    """Host arrays to ``device`` through two page-locked staging buffers
+    used in turn, each copy issued on one copy stream of the device.
+
+    The copy into a staging buffer and the DMA out of it together take a
+    third to a half of the time of a pageable ``.to(device)`` for a 4K
+    one-hot stack.  The consumer waits on the device, not on the host: the
+    caller's current stream waits on the copy's event, and the returned
+    tensor is recorded on that stream, so the caching allocator does not
+    hand its memory out before the consumer's work on it has run.  The host
+    blocks only before it refills a slot, on the copy that last read that
+    slot (two uploads back), never on the compute chain, so the copy of
+    one view overlaps the kernels of the view before it.  ``wait_s`` adds
+    up the seconds the host blocked there.  On a CPU device the array is
+    wrapped as it is."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self._stage: typing.Optional[torch.Tensor] = None
-        self._left: typing.Optional[torch.cuda.Event] = None
+        self._stage: list = [None, None]  # page-locked staging buffers
+        self._read: list = [None, None]  # event of the copy out of each slot
+        self._slot = 0
+        self._stream: typing.Optional[torch.cuda.Stream] = None
+        self.wait_s = 0.0
 
     def __call__(self, array: np.ndarray) -> torch.Tensor:
         host = torch.as_tensor(np.ascontiguousarray(array))
         if self.device.type != "cuda" or host.numel() == 0:
             return host.to(self.device)
-        if self._left is not None:
-            self._left.synchronize()  # the last array has left the buffer
+        k, self._slot = self._slot, 1 - self._slot
+        if self._read[k] is not None:
+            t0 = time.perf_counter()
+            self._read[k].synchronize()  # the copy two uploads back has left
+            self.wait_s += time.perf_counter() - t0
         n_bytes = host.numel() * host.element_size()
-        if self._stage is None or self._stage.numel() < n_bytes:
-            self._stage = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
-        stage = self._stage[:n_bytes].view(host.dtype).view(host.shape)
+        if self._stage[k] is None or self._stage[k].numel() < n_bytes:
+            self._stage[k] = torch.empty(n_bytes, dtype=torch.uint8,
+                                         pin_memory=True)
+        stage = self._stage[k][:n_bytes].view(host.dtype).view(host.shape)
         stage.copy_(host)
-        on_device = stage.to(self.device, non_blocking=True)
-        self._left = torch.cuda.Event()
-        self._left.record(torch.cuda.current_stream(self.device))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            # allocated on the copy stream: a block the consumer freed with
+            # work still queued is not reused before that work has run
+            on_device = torch.empty(host.shape, dtype=host.dtype,
+                                    device=self.device)
+            on_device.copy_(stage, non_blocking=True)
+        read = torch.cuda.Event()
+        read.record(self._stream)
+        consumer.wait_event(read)
+        on_device.record_stream(consumer)
+        self._read[k] = read
         return on_device

@@ -430,3 +430,26 @@ def test_planned_aggregation_on_the_card(cuda):
     np.testing.assert_allclose(out_g[1][0][0], out_c[1][0][0], rtol=1e-6, atol=1e-7)
     assert out_g[2][1] >= 1 and out_c[2][1] == out_g[2][1]
     np.testing.assert_array_equal(out_g[2][0], out_c[0][0])
+
+
+def test_pinned_upload_two_slots_on_a_copy_stream(cuda):
+    """Three uploads back to back through the two-slot upload while the
+    consumer stream lags (a sleep kernel before each read), each
+    consumer's tensor dropped right after its read is queued: every read
+    sees its own array (the copy stream, the consumer's wait on it and
+    ``record_stream`` keep the slots and the device memory apart)."""
+    from geograypher_tpu_torch.utils.device import PinnedUpload
+
+    upload = PinnedUpload(cuda)
+    n = 2048 * 2048
+    sums = []
+    for k in range(3):
+        torch.cuda._sleep(50_000_000)
+        on_device = upload(np.full((2048, 2048), k + 1, np.int32))
+        sums.append(on_device.to(torch.int64).sum())
+        del on_device
+    torch.cuda.synchronize()
+    assert [int(s) for s in sums] == [(k + 1) * n for k in range(3)]
+    assert upload._stream is not None
+    assert upload._stream.cuda_stream != torch.cuda.current_stream().cuda_stream
+    assert all(s is not None for s in upload._stage)

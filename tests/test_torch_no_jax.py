@@ -34,7 +34,8 @@ def loaded(*roots):
 IMPORT_ALL = REFUSE + r"""
 import importlib, pkgutil
 
-REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas")
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "sklearn")
 refuse(*REFUSED)
 import geograypher_tpu_torch
 names = ["chip_smoke"] + [
@@ -46,6 +47,9 @@ assert "geograypher_tpu_torch.entrypoints.render_labels" in names, names
 assert "geograypher_tpu_torch.utils.vector" in names, names
 assert "geograypher_tpu_torch.parallel.planner" in names, names
 assert "geograypher_tpu_torch.ops.face_sums" in names, names
+for name in ("parallel.pipeline", "parallel.sharding", "meshes.chunked",
+             "utils.kmeans"):
+    assert "geograypher_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
 assert not loaded(*REFUSED), loaded(*REFUSED)
@@ -56,7 +60,8 @@ print(len(names))
 # JAX package refused: the scene, the sorted mesh, a segmentor camera set,
 # the one-hot probes (accepted images against the numpy scan, refused
 # images down the means path), the streaming aggregation with level S off
-# and on, and phases 6 and 6m (the planner and the means path)
+# and on, phases 6 and 6m (the planner and the means path), and phases 7
+# and 7c (the survey pipeline, chunked aggregation, view sharding)
 CHIP_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
            "imageio", "sklearn")
@@ -111,6 +116,22 @@ assert not any(launches.values()), launches
 launches, row = cs._means_phase(mesh, cams, h, w, 3, timing=False)
 assert row["max_abs_err"] == 0.0 and row["faces_hit"] > 0
 assert not any(launches.values()), launches
+# phase 7 (the survey pipeline: a provider, the one-hot default, a forced
+# retry, two shards) and 7c (chunked aggregation, view sharding)
+devices = ["cpu", "cpu"]
+launches, fields = cs._pipeline_phase(mesh, cams, labels, 3, devices,
+                                      forced_caps=(1, 1, 1, 1), timing=False)
+assert fields["forced_retried_views"] == 2 and fields["retried_views"] == 0
+assert not any(launches.values()), launches
+named = cs.SegmentorCameraSet(
+    cs.CameraSet(c2ws, sensors, image_filenames=["a.png", "b.png"],
+                 sensor_IDs=[0, 1]),
+    cs.LabelSegmentor(labels, 3, ["a.png", "b.png"]))
+launches, fields = cs._chunked_aggregate_check(mesh, named, 3)
+assert fields["clusters"] == [1, 1] and not any(launches.values())
+launches, fields = cs._sharded_check(mesh, cams, mesh.raster_config, devices, 3)
+assert fields["sharded_seen_faces"] > 0 and not any(launches.values())
+assert fields["sharded"]["one"]["bit_equal"]
 assert not loaded(*REFUSED), loaded(*REFUSED)
 print("ok")
 """
@@ -119,8 +140,8 @@ print("ok")
 # chip_smoke.py's phase 5 at a tiny size on CPU tensors, with the same
 # modules refused: the survey written to disk (PLY, Metashape XML with
 # three sensors, GeoJSON), ``render_labels`` with every check of the masks
-# (PNG through the port's own codec, the plain re-runs, the cache), and
-# the round trip through ``aggregate_images``
+# (PNG through the port's own codec, the plain re-runs, the cache), the
+# round trip through ``aggregate_images``, and phase 7c's chunked render
 RENDER_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
            "imageio", "sklearn")
@@ -151,6 +172,9 @@ with tempfile.TemporaryDirectory() as folder:
     assert 0.3 < fields["labelled_vertex_share"] < 0.7
     trip = cs._round_trip(survey, mesh, cfg, device="cpu", min_agree=0.95)
     assert trip["observed_and_labelled"] > 0.3 * len(faces)
+    # phase 7c's chunked render against phase 5's files
+    chunk_launches, chunk = cs._chunked_render_check(survey, cfg, device="cpu")
+    assert chunk["render_files"] == 3 and not any(chunk_launches.values())
 # CPU tensors take the plain versions
 assert not any(launches.values()), launches
 assert not loaded(*REFUSED), loaded(*REFUSED)

@@ -317,8 +317,9 @@ def test_render_flat_matches_jax(scene):
     np.testing.assert_array_equal(img[same], ref[same])
     with pytest.raises(ValueError, match="no texture"):
         next(interop.mesh_from_jax(JaxTexturedMesh(jmesh), device="cpu").render_flat(cams))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        next(mesh.render_flat(cams, batch_size=2))
+    # batch_size is accepted and changes nothing, as in the JAX package
+    np.testing.assert_array_equal(next(mesh.render_flat(cams, batch_size=2)),
+                                  renders[0][0])
 
 
 def test_capacity_overflow_is_not_silent(scene):
@@ -511,7 +512,19 @@ def test_render_labels_matches_jax_mesh(survey, tmp_path):
         assert ours.shape == theirs.shape == (96, 96) and ours.dtype == np.uint8
         assert (ours == theirs).mean() >= 0.99
         assert set(np.unique(ours)) <= {0, 1, 2, 255} and len(np.unique(ours)) >= 3
-    for kw, item in ((dict(DTM_file="dtm.tif"), "A6"), (dict(n_cameras_per_chunk=2), "A11"),
+    # chunked (two camera clusters; the 125 m chunk buffer covers the
+    # scene): the same files
+    render_labels(
+        mesh_file=survey["mesh_file"], cameras_file=survey["cameras_file"],
+        image_folder=survey["image_folder"], texture=survey["labels_vector_file"],
+        texture_column_name="species", render_savefolder=tmp_path / "c",
+        ROI_buffer_radius_meters=8.0, cameras_ROI_buffer_radius_meters=25.0,
+        n_cameras_per_chunk=2, device="cpu")
+    for k in range(4):
+        name = f"img_{k:04d}.png"
+        np.testing.assert_array_equal(read_image_or_numpy(tmp_path / "c" / name),
+                                      read_image_or_numpy(tmp_path / "t" / name))
+    for kw, item in ((dict(DTM_file="dtm.tif"), "A6"),
                      (dict(make_composites=True), "A9"), (dict(vis=True), "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             render_labels(survey["mesh_file"], survey["cameras_file"],

@@ -161,12 +161,17 @@ def test_planned_aggregation_not_ported(survey):
 
 
 def test_batched_views_not_ported(survey):
+    """``batch_size`` is accepted since views run one at a time with
+    overlapped uploads: any count >= 1 gives the result of 1, as in the
+    JAX package, which ignores it; 0 is refused."""
     jmesh, jcams = survey
     mesh = interop.mesh_from_jax(jmesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        mesh.aggregate_projected_images(
-            interop.cameras_from_jax(jcams), batch_size=2
-        )
+    cams = interop.cameras_from_jax(jcams)
+    one, _ = mesh.aggregate_projected_images(cams)
+    two, _ = mesh.aggregate_projected_images(cams, batch_size=2)
+    np.testing.assert_array_equal(two, one)
+    with pytest.raises(ValueError, match="batch_size"):
+        mesh.aggregate_projected_images(cams, batch_size=0)
 
 
 def test_entrypoint_matches_jax_mesh(tmp_path):
@@ -200,10 +205,13 @@ def test_entrypoint_matches_jax_mesh(tmp_path):
     assert observed.mean() > 0.4
     assert (pred[observed] == s["face_labels"][observed]).mean() > 0.95
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        aggregate_images(s["mesh_file"], s["cameras_file"], s["image_folder"],
-                         s["label_folder"], n_aggregation_clusters=2,
-                         device="cpu")
+    # clustered: two camera chunks whose 125 m buffers cover the scene
+    pred_c, avg_c = aggregate_images(
+        s["mesh_file"], s["cameras_file"], s["image_folder"], s["label_folder"],
+        take_every_nth_camera=None, n_classes=s["n_classes"],
+        n_aggregation_clusters=2, device="cpu")
+    np.testing.assert_array_equal(pred_c, pred)
+    np.testing.assert_allclose(avg_c, avg, rtol=1e-6, equal_nan=True)
 
 
 def test_camera_batch_matches_jax(survey):

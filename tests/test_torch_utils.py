@@ -74,7 +74,8 @@ def test_face_orders_match_jax(mesh, rows_per_bin):
 
 def test_constants_match_jax():
     for name in ("LAT_LON_EPSG", "EARTH_CENTERED_EARTH_FIXED_EPSG",
-                 "EXAMPLE_INTRINSICS", "PATH_TYPE"):
+                 "EXAMPLE_INTRINSICS", "PATH_TYPE",
+                 "CHUNKED_MESH_BUFFER_DIST_METERS"):
         assert getattr(tc, name) == getattr(jc, name)
 
 

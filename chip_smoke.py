@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's aggregation and render paths once on one CUDA card.
+"""Drive the PyTorch port's aggregation, render and detection paths once on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -89,7 +89,22 @@ Phases (each prints one line; any failure raises and exits nonzero):
    with ``n_cameras_per_chunk=4`` on phase 5's survey (every PNG equal to
    phase 5's), and ``sharded_render_aggregate`` on phase 3's 8 views, on
    one and on two shards, against a loop of the raster chain,
-   ``render_texture`` and ``project_image_to_faces``.
+   ``render_texture`` and ``project_image_to_faces``;
+8. the detection workflow (``"8a"``: the bench mesh as PLY and phase 7's
+   20 views as a Metashape XML; 300 seeded objects 0.1-0.4 m above the
+   surface, each projected into every view it lies in front of as a
+   40 x 40 px box of a CSV and a square of the view's GeoJSON): ``"8b"``,
+   ``project_detections`` at full 4K, one raster and one counts launch a
+   view, equal to a run of the same views through the plain versions and
+   with counts for every detection whose centre sees the mesh, the
+   raster and counts kernels against their plain versions on view 0 at
+   its own (faces, detections) shape, with per-view stage times;
+   ``"8c"``, ``multiview_detections`` (covering mesh N=50): every object
+   seen in two or more views recovered within ``DETECTION_RECOVER_M``,
+   no community farther than that from every object, the same points from
+   a second run and from the cache files, and the stage times (rays,
+   clip, the graph's device blocks and host formatting, Louvain,
+   averaging).
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -110,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import csv
 import dataclasses
 import json
 import logging
@@ -123,15 +139,19 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.sparse
 import torch
 
-from geograypher_tpu_torch.cameras.core import CameraSet
+from geograypher_tpu_torch.cameras.core import CameraSet, project_points
 from geograypher_tpu_torch.cameras.distortion import remap_image, remap_image_torch
+from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
+from geograypher_tpu_torch.entrypoints.multiview_detections import multiview_detections
+from geograypher_tpu_torch.entrypoints.project_detections import project_detections
 from geograypher_tpu_torch.entrypoints.render_labels import render_labels
 from geograypher_tpu_torch.kernels import build
-from geograypher_tpu_torch.meshes import chunked
+from geograypher_tpu_torch.meshes import chunked, sparse
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
 from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
@@ -154,6 +174,11 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_triangles,
 )
 from geograypher_tpu_torch.parallel import pipeline, planner, sharding
+from geograypher_tpu_torch.ops.raycast import clip_line_segments
+from geograypher_tpu_torch.predictors.segmentors import (
+    RegionDetectionSegmentor,
+    TabularRectangleSegmentor,
+)
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import PinnedUpload
 from geograypher_tpu_torch.utils.example_data import (
@@ -1104,15 +1129,30 @@ def main():
         launches_7s, fields_s = _sharded_check(mesh, cams, cfg, devices, N_CLASSES)
         _line("7c", **fields_a, **fields_r, **fields_s, card=smi)
         del labels_p
+        # -- phase 8: the detection workflow on phase 7's 20 views -------------
+        # caps from the census of every view's pinhole render (the raster
+        # of a distorted view is remapped)
+        pinhole = []
+        for i in range(PIPELINE_VIEWS):
+            b = cams_p.get_camera_batch([i], device=dev)
+            pinhole.append(setup_from_soa(soa, b.world_to_cam[0], b.f[0], W, H,
+                                          cfg.znear))
+        census_d, caps_d = _census_caps(pinhole, RasterConfig())
+        del pinhole
+        _line("setup_d", census=census_d, caps=list(caps_d))
+        launches_8, det_row = _detection_phase(
+            folder, verts, faces, _suite_cameras(n_views=PIPELINE_VIEWS), sensors,
+            _suite_sensor_ids(PIPELINE_VIEWS), RasterConfig(caps=caps_d), card=smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
-    # the kernels' launches on phases 7 and 7c's paths
+    # the kernels' launches on phases 7, 7c and 8's paths
     later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
-             + launches_7s[name] for name in launches_7}
+             + launches_7s[name] + launches_8[name] for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
     # level-S path, phase 5's two entry points, phase 6's planned route,
-    # phase 6m's first means run, phase 7's main run and phase 7c's chunked
-    # aggregation, chunked render and one-device sharded run); times and bounds are the kernel-vs-plain
+    # phase 6m's first means run, phase 7's main run, phase 7c's chunked
+    # aggregation, chunked render and one-device sharded run, and phase 8's
+    # project_detections); times and bounds are the kernel-vs-plain
     # views at the main path's configuration (phase 2's first two views;
     # level S: its two views at the S configuration; face_sums: view 0)
     def mean(rs, key):
@@ -1156,7 +1196,14 @@ def main():
              piecewise_library_ms=mean(main_rows, "counts_piecewise_library_ms"),
              piecewise_device_ms=mean(main_rows, "counts_piecewise_device_ms"),
              # in turns with the --parent tree's wrapper (the ab_counts line)
-             turns=ab),
+             turns=ab,
+             # phase 8's shape: view 0's own detections as the classes
+             detection_classes=det_row["classes"], detection_ms=det_row["ms"],
+             detection_plain_ms=det_row["plain_ms"],
+             detection_bound_ms=det_row["bound_ms"],
+             detection_library_ms=det_row["library_ms"],
+             detection_nonzero_ms=det_row["nonzero_ms"],
+             detection_max_abs_err=det_row["max_abs_err"]),
         dict(name="s_raster", route="cuda",
              source="geograypher_tpu_torch/csrc/s_raster.cu",
              replaces=TPU_KERNELS["B5"],
@@ -1614,7 +1661,7 @@ def _label_polygons(origin_xy, size, seed=0):
 
 
 def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height,
-                  size=4.0, lat=36.0, lon=-119.0):
+                  size=4.0, lat=36.0, lon=-119.0, phase="5a"):
     """Phase 5a: the survey on disk.  The mesh as a binary PLY in its local
     frame, the cameras as a Metashape XML with a local -> ECEF transform,
     and seeded label polygons in UTM as GeoJSON; no image files."""
@@ -1639,7 +1686,7 @@ def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height
     survey = dict(mesh_file=mesh_file, cameras_file=cameras_file,
                   labels_file=labels_file, image_folder=folder / "images",
                   render_folder=folder / "renders", names=names)
-    _line("5a", faces=int(len(faces)), views=len(c2ws), image=[height, width],
+    _line(phase, faces=int(len(faces)), views=len(c2ws), image=[height, width],
           mesh_bytes=mesh_file.stat().st_size, polygons=len(polys),
           species=sorted(set(species)), utm_epsg=utm,
           write_s=round(time.perf_counter() - t0, 3))
@@ -2234,6 +2281,342 @@ def _sharded_check(mesh, cams, cfg, devices, n_classes):
     return out["one"]["launches"], dict(
         sharded_views=len(cams), sharded_caps=list(cfg.caps),
         sharded_seen_faces=int((ref_count > 0).sum()), sharded=out)
+
+
+# -- phase 8: the detection workflow ---------------------------------------------
+
+DETECTION_OBJECTS = 300
+DETECTION_BOX_PX = 40.0  # side of a detection box and square
+# the bench scene is 4 m wide and the nadir cameras fly ~2.1 m up: objects
+# 0.1-0.4 m above the surface, at least 0.08 m apart, inside the part of
+# the band the nadir views cover whose rays meet the floor covering mesh
+DETECTION_HEIGHTS = (0.1, 0.4)
+DETECTION_SPACING = 0.08
+DETECTION_REGION = (-1.2, 1.2, -0.9, 0.9)  # x0, x1, y0, y1 (m)
+# the triangulation: the similarity threshold (the detections are exact:
+# two rays of one object meet within ~1e-5 m), the covering meshes' z
+# buffer (the ceiling stays below every camera) and the recovery limit
+DETECTION_THRESHOLD_M = 1e-4
+DETECTION_Z_BUFFER = (0.5, -0.5)
+DETECTION_RECOVER_M = 1e-3
+# Louvain's resolution: two rays of different objects that pass within
+# 1e-6 m weigh what true pairs weigh (the 1e-6 distance floor), and with
+# 300 communities in one graph modularity merges two of them over one such
+# edge at resolution 1 (the merge gain w / m - r S_a S_b / 2 m^2 turns
+# negative only past r ~ 2.2); 10 keeps them apart and splits no object
+DETECTION_RESOLUTION = 10.0
+
+
+def _detection_objects(verts, faces, n, seed=8):
+    """``n`` seeded points on the mesh surface (a random face, a random
+    barycentric point) inside ``DETECTION_REGION``, at least
+    ``DETECTION_SPACING`` apart, raised by ``DETECTION_HEIGHTS``."""
+    rng = np.random.default_rng(seed)
+    tri = np.asarray(verts)[np.asarray(faces)]
+    cen = tri.mean(axis=1)
+    x0, x1, y0, y1 = DETECTION_REGION
+    inside = np.nonzero((cen[:, 0] >= x0) & (cen[:, 0] <= x1)
+                        & (cen[:, 1] >= y0) & (cen[:, 1] <= y1))[0]
+    pts = np.zeros((0, 3))
+    for _ in range(200 * n):
+        if len(pts) == n:
+            break
+        p = rng.dirichlet((1.0, 1.0, 1.0)) @ tri[inside[rng.integers(len(inside))]]
+        if len(pts) and np.min(np.hypot(*(pts[:, :2] - p[:2]).T)) < DETECTION_SPACING:
+            continue
+        pts = np.vstack([pts, p])
+    if len(pts) < n:
+        raise RuntimeError(f"placed {len(pts)} of {n} detection objects")
+    pts[:, 2] += rng.uniform(*DETECTION_HEIGHTS, n)
+    return pts
+
+
+def _write_detections(folder, cams, objects, w, h, box, device):
+    """Every object that projects inside a view, in front of it (pinhole,
+    as the workflow casts its rays): a ``box`` x ``box`` px box in the
+    view's rows of one CSV and a square polygon in the view's GeoJSON.
+    Detection k is row k of the CSV and the k-th polygon over the sorted
+    GeoJSON files.  Returns (csv path, GeoJSON folder, (D,) view of each
+    detection, (D,) object, (D, 2) centre (x, y))."""
+    folder = Path(folder)
+    regions = folder / "regions"
+    regions.mkdir(parents=True, exist_ok=True)
+    batch = cams.get_camera_batch(device=device)
+    xy, _, valid = project_points(
+        batch, torch.as_tensor(objects, dtype=torch.float32, device=device))
+    xy, valid = xy.double().cpu().numpy(), valid.cpu().numpy()
+    views, objs, centres = [], [], []
+    half = box / 2.0
+    csv_path = folder / "boxes.csv"
+    with csv_path.open("w", newline="") as fh:
+        out = csv.writer(fh)
+        out.writerow(["image_path", "xmin", "ymin", "xmax", "ymax", "label"])
+        for v in range(len(cams)):
+            name = Path(cams.image_filenames[v]).name
+            polys = []
+            for k in np.nonzero(valid[v])[0]:
+                x, y = xy[v, k]
+                out.writerow([name, x - half, y - half, x + half, y + half,
+                              f"object_{k}"])
+                polys.append(Polygon(np.array([[x - half, y - half],
+                                               [x + half, y - half],
+                                               [x + half, y + half],
+                                               [x - half, y + half]])))
+                views.append(v)
+                objs.append(k)
+                centres.append((x, y))
+            if polys:
+                VectorData(polys, {"label": [f"object_{k}" for k in
+                                             np.nonzero(valid[v])[0]]}).to_file(
+                    regions / f"{Path(name).stem}.geojson")
+    return (csv_path, regions, np.asarray(views), np.asarray(objs),
+            np.asarray(centres).reshape(-1, 2))
+
+
+def _csr_equal(a, b):
+    a, b = a.tocsr(), b.tocsr()
+    a.sort_indices()
+    b.sort_indices()
+    return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices) and np.array_equal(a.data, b.data))
+
+
+def _detection_kernels_vs_plain(mesh, seg, cfg, w, h, timing):
+    """Phase 8's kernels on view 0 of the detection survey (pinhole), at
+    its own shape: the raster kernel against its plain version, then the
+    counts kernel at (F, n_local), the view's own detections as the
+    classes, bit for bit, with times, bound and ``torch.bincount``'s time
+    at that shape."""
+    dev = mesh.device
+    batch = seg.get_camera_batch([0], device=dev)
+    setup = setup_from_soa(mesh._tri_soa_device(seg, cfg.bin_block),
+                           batch.world_to_cam[0], batch.f[0], w, h, cfg.znear)
+    binned = bin_triangles(setup, cfg, h, w)
+    cand, counts = binned_face_lists(binned, cfg)
+    planes, bbox = setup.planes.contiguous(), setup.bbox
+    p2f = raster_tiles.raster_tiles(planes, bbox, cand, counts, cfg, h, w)
+    p2f_plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, h, w)
+    if int(binned.overflow) or not torch.equal(p2f, p2f_plain):
+        raise RuntimeError(f"detection view 0: overflow {int(binned.overflow)}, "
+                           f"{int((p2f != p2f_plain).sum())} pixels off the plain raster")
+    if not torch.equal(p2f, mesh._pix2face_device(seg, 0)):
+        raise RuntimeError("detection view 0: the mesh's pix2face is not the raster's")
+    img = torch.as_tensor(np.asarray(seg.get_image_by_index(0), np.float64), device=dev)
+    local, classes = sparse.local_class_image(img)
+    n_faces, n_local = mesh.n_faces, int(classes.numel())
+    cnt = face_counts.face_class_counts(p2f, local, n_faces, n_local)
+    cnt_plain = face_counts.face_class_counts_plain(p2f, local, n_faces, n_local)
+    if not torch.equal(cnt, cnt_plain):
+        raise RuntimeError(f"counts kernel vs plain at the detection shape ({n_faces}, "
+                           f"{n_local}): max |diff| {int((cnt - cnt_plain).abs().max())}")
+    bound_ms, bound_by = _bound(2 * h * w * 4 + n_faces * n_local * 4, 0)
+    row = dict(classes=n_local, labelled_pixels=int((local >= 0).sum()),
+               max_abs_err=int((cnt - cnt_plain).abs().max()),
+               raster_max_abs_err=int((p2f - p2f_plain).abs().max()),
+               bound_ms=bound_ms, bound_by=bound_by)
+    del cnt, cnt_plain
+    if timing:
+        # background faces and unlabelled pixels shifted into their own bins
+        key = ((p2f.long() + 1) * (n_local + 1) + local.long() + 1).reshape(-1)
+        row.update(
+            ms=_cuda_ms(lambda: face_counts.face_class_counts(p2f, local, n_faces,
+                                                              n_local), runs=10),
+            plain_ms=_cuda_ms(lambda: face_counts.face_class_counts_plain(
+                p2f, local, n_faces, n_local), runs=3),
+            library_ms=_cuda_ms(lambda: torch.bincount(
+                key, minlength=(n_faces + 1) * (n_local + 1)), runs=10),
+            nonzero_ms=_cuda_ms(lambda: torch.nonzero(
+                face_counts.face_class_counts(p2f, local, n_faces, n_local)), runs=5),
+            raster_ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
+                planes, bbox, cand, counts, cfg, h, w)))
+        del key
+    return row
+
+
+def _plain_index_run(mesh, seg, n, centres_by_view):
+    """The sparse counts of every view again, through the plain raster and
+    the plain counts (no kernel may launch), and each view's pix2face at
+    the given detection centres.  Returns (CSR, {view: faces at centres})."""
+    import geograypher_tpu_torch.ops.rasterize as rasterize_mod
+
+    kernel_raster, kernel_counts = rasterize_mod.raster_tiles, sparse.face_class_counts
+    pix2face_device = mesh._pix2face_device
+    at_centres = {}
+
+    def plain_raster(planes, bbox, cand, counts, cfg, h, w, s_init=None):
+        return raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, h, w,
+                                               s_init=s_init)
+
+    def recording(cameras, index, **kw):
+        p2f = pix2face_device(cameras, index, **kw)
+        xy = centres_by_view.get(index)
+        if xy is not None:
+            at_centres[index] = p2f[torch.as_tensor(xy[:, 1].astype(np.int64)),
+                                    torch.as_tensor(xy[:, 0].astype(np.int64))].cpu().numpy()
+        return p2f
+
+    rasterize_mod.raster_tiles = plain_raster
+    sparse.face_class_counts = face_counts.face_class_counts_plain
+    mesh._pix2face_device = recording
+    _reset_launches()
+    try:
+        counts, _ = sparse.aggregate_index_predictions(mesh, seg, n)
+    finally:
+        rasterize_mod.raster_tiles, sparse.face_class_counts = kernel_raster, kernel_counts
+        del mesh._pix2face_device
+    if any(_launches().values()):
+        raise RuntimeError(f"the plain detection run launched {_launches()}")
+    return counts, at_centres
+
+
+def _triangulated(out_dir):
+    """The local community points and ray communities of a run's
+    ``communities.npz``."""
+    comm = np.load(Path(out_dir) / "communities.npz")
+    return comm["community_points"], comm["ray_IDs"]
+
+
+def _detection_phase(folder, verts, faces, c2ws, sensors, sensor_ids, cfg, w=W, h=H,
+                     n_objects=DETECTION_OBJECTS, box=DETECTION_BOX_PX, device=None,
+                     card=None, timing=True):
+    """Phase 8: the detection workflow from a survey on disk.  ``"8a"``
+    writes the mesh, the cameras and ~``n_objects`` seeded objects'
+    detections (a CSV of boxes, a GeoJSON of squares a view);
+    ``project_detections`` at ``aggregate_image_scale=1.0`` (the main
+    path of the raster and counts kernels: one launch a view each) must
+    match a run of the same views through the plain versions exactly, and
+    every detection whose centre pixel sees the mesh has counts;
+    ``multiview_detections`` (covering mesh N=50) must recover every
+    object seen in two or more views within ``DETECTION_RECOVER_M`` with
+    no community farther than that from every object, give the same
+    points twice and again from its cache files.  ``device`` None runs
+    both entry points at their default (the card).  Returns (the
+    kernels' launches on ``project_detections``, the counts kernel's row
+    at the detection shape)."""
+    on = {} if device is None else {"device": device}
+    dev = torch.device("cuda" if device is None else device)
+    folder = Path(folder) / "detections"
+    survey = _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, w, h,
+                           phase="8a")
+    cams = MetashapeCameraSet(survey["cameras_file"], survey["image_folder"])
+    mesh = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                        raster_config=cfg, device=dev)
+    objects = _detection_objects(mesh.get_verts_in_local_frame(cams), mesh.faces,
+                                 n_objects)
+    csv_path, regions, det_view, det_obj, det_xy = _write_detections(
+        folder, cams, objects, w, h, box, dev)
+    n_det = len(det_view)
+    per_view = np.bincount(det_view, minlength=len(cams))
+
+    # project_detections: the main path of the raster and counts kernels
+    stats = {}
+    _reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    counts, vd = project_detections(
+        survey["mesh_file"], survey["cameras_file"], survey["image_folder"],
+        detections_folder=csv_path, image_shape=(h, w), aggregate_image_scale=1.0,
+        projections_to_mesh_savefile=folder / "counts.npz",
+        projections_to_geospatial_savefile=folder / "detections.geojson",
+        raster_config=cfg, stats=stats, **on)
+    _sync(dev)
+    project_s = time.perf_counter() - t0
+    launches = _launches()
+    on_card = dev.type == "cuda"
+    want = {"raster_tiles": len(cams) * on_card, "face_class_counts": len(cams) * on_card,
+            "s_raster": 0, "onehot_class": 0, "face_sums": 0}
+    if launches != want:
+        raise RuntimeError(f"project_detections launches {launches}, expected {want}")
+    saved = scipy.sparse.load_npz(folder / "counts.npz")
+    if saved.shape != (mesh.n_faces, n_det) or not _csr_equal(saved, counts):
+        raise RuntimeError(f"project_detections saved {saved.shape}, {n_det} detections")
+    seg = SegmentorCameraSet(cams, TabularRectangleSegmentor(csv_path, image_shape=(h, w)))
+    kernel_row = _detection_kernels_vs_plain(mesh, seg, cfg, w, h, timing)
+    centres = {v: det_xy[det_view == v] for v in range(len(cams))}
+    plain, at_centres = _plain_index_run(mesh, seg, n_det, centres)
+    if not _csr_equal(plain, counts):
+        raise RuntimeError("project_detections counts differ from the plain run's")
+    column_nnz = np.diff(counts.tocsc().indptr)
+    sees_mesh = np.concatenate([at_centres[v] >= 0 for v in range(len(cams))])
+    empty = np.nonzero(sees_mesh & (column_nnz == 0))[0]
+    if len(empty):
+        raise RuntimeError(f"{len(empty)} detections over the mesh have no counts, "
+                           f"e.g. {empty[:5].tolist()}")
+    if len(vd) == 0 or "detection_label" not in vd.attributes:
+        raise RuntimeError("project_detections exported no labelled polygons")
+
+    # multiview_detections: twice from nothing, once from the cache files
+    tri = {}
+    for run, out_dir in (("first", "tri_a"), ("second", "tri_b"), ("cached", "tri_a")):
+        st = {}
+        _sync(dev)
+        t0 = time.perf_counter()
+        pts = multiview_detections(
+            survey["mesh_file"], survey["cameras_file"], survey["image_folder"],
+            detections_folder=regions, similarity_threshold_meters=DETECTION_THRESHOLD_M,
+            louvain_resolution=DETECTION_RESOLUTION,
+            covering_z_buffer=DETECTION_Z_BUFFER, out_dir=folder / out_dir,
+            triangulated_points_savefile=folder / f"points_{run}.geojson",
+            stats=st, **on)
+        _sync(dev)
+        tri[run] = (pts, time.perf_counter() - t0, st)
+    first = tri["first"][0]
+    if not (np.array_equal(first, tri["second"][0]) and np.array_equal(first, tri["cached"][0])):
+        raise RuntimeError("multiview_detections: runs or the cached run differ")
+    points, _ = _triangulated(folder / "tri_a")
+    # objects with two or more rays that the covering meshes keep: the
+    # detections' rays unclipped, in detection order, then the clip
+    top, bottom = mesh.export_covering_meshes(
+        N=50, z_buffer=DETECTION_Z_BUFFER,
+        frame_transform=cams.get_local_to_epsg_4978_transform())
+    rays = cams.calc_line_segments(RegionDetectionSegmentor(regions),
+                                   ray_length_local=200.0, device=dev)
+    _, _, kept = clip_line_segments(rays["ray_starts"], rays["ray_ends"],
+                                    top[0][top[1]], bottom[0][bottom[1]], device=dev)
+    seen2 = np.bincount(det_obj[kept], minlength=n_objects) >= 2
+    d = np.linalg.norm(points[:, None, :] - objects[None], axis=2)
+    to_object = d.min(axis=1) if len(points) else np.zeros(0)
+    to_community = d.min(axis=0) if len(points) else np.full(n_objects, np.inf)
+    missed = np.nonzero(seen2 & (to_community > DETECTION_RECOVER_M))[0]
+    stray = np.nonzero(to_object > DETECTION_RECOVER_M)[0]
+    if len(missed) or len(stray):
+        raise RuntimeError(f"triangulation: {len(missed)} objects seen twice not "
+                           f"recovered, {len(stray)} communities away from every object "
+                           f"(limit {DETECTION_RECOVER_M} m)")
+    written = VectorData.read_file(folder / "points_first.geojson")
+    if len(written) != len(first) or "altitude" not in written.attributes:
+        raise RuntimeError("multiview_detections wrote no points file")
+    segs = np.load(folder / "tri_a" / "line_segments.npz")
+    edges = json.loads((folder / "tri_a" / "edge_weights.json").read_text())
+
+    def view_stage(key):
+        vals = [s[key] for s in stats["views"]]
+        return dict(median=round(statistics.median(vals) * 1e3, 4),
+                    max=round(max(vals) * 1e3, 4)) if vals else None
+
+    _line("8b", views=len(cams), objects=n_objects, detections=n_det,
+          detections_per_view=[int(per_view.min()), round(float(per_view.mean()), 2),
+                               int(per_view.max())],
+          wall_s=round(project_s, 4), nnz=int(counts.nnz),
+          polygons=len(vd), launches=launches, plain_run_equal=True,
+          detections_over_the_mesh=int(sees_mesh.sum()),
+          stages_s={k: round(stats[k], 4) for k in (
+              "load_s", "aggregate_s", "export_s", "write_s")},
+          view_ms={k: view_stage(k) for k in (
+              "segment_s", "upload_s", "remap_s", "pix2face_s", "counts_s",
+              "nonzero_s", "download_s", "host_s")},
+          counts_kernel=kernel_row, card=card)
+    _line("8c", rays=int(len(segs["ray_IDs"])), rays_cast=int(len(kept)), edges=len(edges),
+          communities=int(len(points)), objects_seen_twice=int(seen2.sum()),
+          max_recover_m=float(to_community[seen2].max()) if seen2.any() else None,
+          max_community_to_object_m=float(to_object.max()) if len(points) else None,
+          threshold_m=DETECTION_THRESHOLD_M, recover_limit_m=DETECTION_RECOVER_M,
+          louvain_resolution=DETECTION_RESOLUTION,
+          runs_equal=True, wall_s={k: round(v[1], 4) for k, v in tri.items()},
+          stages_s={k: round(v, 4) for k, v in tri["first"][2].items()},
+          second_stages_s={k: round(v, 4) for k, v in tri["second"][2].items()},
+          card=card)
+    return launches, kernel_row
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """Camera model core: camera batches as torch tensors + the host-side set.
 
 Port of the parts of ``geograypher_tpu/cameras/core.py`` that the
-aggregation and render paths use.  Conventions are the JAX package's: ``cam_to_world``
+aggregation, render and detection paths use: camera batches, the batched
+projection and pixel rays, and the camera set with its detection
+triangulation.  Conventions are the JAX package's: ``cam_to_world``
 is a 4x4 transform in the photogrammetry local frame, the camera looks
 along +Z with x right and y down, ``f`` is in pixels and ``cx, cy`` are
 principal-point offsets from the image centre.  Host geometry stays
@@ -13,9 +15,11 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import json
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,6 +130,112 @@ def make_camera_batch(
         image_width=int(image_width),
         image_height=int(image_height),
     )
+
+
+# ---------------------------------------------------------------------------
+# Batched projection math on the device.  Every product with a rotation is
+# a sum of elementwise products (no matmul, so no TF32 on the card), as
+# the JAX package runs them at full float32 (Precision.HIGHEST).
+# ---------------------------------------------------------------------------
+
+
+def _rotate(points: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """``points @ rot.T`` over the last axis, as elementwise sums:
+    points (..., P, 3) and rot (..., 3, 3) broadcast over the leading
+    axes."""
+    p = points[..., :, None, :]  # (..., P, 1, 3)
+    r = rot[..., None, :, :]  # (..., 1, 3, 3)
+    return p[..., 0] * r[..., 0] + p[..., 1] * r[..., 1] + p[..., 2] * r[..., 2]
+
+
+def world_to_camera_frame(points: torch.Tensor, world_to_cam: torch.Tensor) -> torch.Tensor:
+    """Transform (V, 3) local-frame points into one camera's frame
+    (``world_to_cam`` (4, 4)); returns (V, 3) with +Z forward."""
+    return _rotate(points, world_to_cam[:3, :3]) + world_to_cam[:3, 3]
+
+
+def camera_frame_to_pixels(
+    pts_cam: torch.Tensor,
+    f,
+    cx,
+    cy,
+    image_width: int,
+    image_height: int,
+    use_principal_point: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pinhole projection of camera-frame points to pixel coordinates.
+
+    Returns (xy, depth, valid): ``xy`` (V, 2) continuous ``(col, row)``
+    coordinates, ``depth`` the +Z camera depth, ``valid`` the points in
+    front of the camera and inside the image.
+    """
+    z = pts_cam[..., 2]
+    eps = torch.tensor(1e-12, dtype=pts_cam.dtype, device=pts_cam.device)
+    safe_z = torch.where(z.abs() < eps, eps, z)
+    px = f * pts_cam[..., 0] / safe_z + image_width / 2.0
+    py = f * pts_cam[..., 1] / safe_z + image_height / 2.0
+    if use_principal_point:
+        px = px + cx
+        py = py + cy
+    xy = torch.stack([px, py], dim=-1)
+    in_front = z > 0
+    in_image = (px >= 0) & (px < image_width) & (py >= 0) & (py < image_height)
+    return xy, z, in_front & in_image
+
+
+def project_points(
+    batch: CameraBatch,
+    points: torch.Tensor,
+    use_principal_point: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Project (V, 3) points through all cameras in the batch.
+
+    Returns xy (N, V, 2) pixel (col, row) coordinates, depth (N, V)
+    camera-frame depth and valid (N, V), in front and inside the image.
+    """
+    w2c = batch.world_to_cam
+    pts_cam = _rotate(points[None], w2c[:, :3, :3]) + w2c[:, None, :3, 3]
+    return camera_frame_to_pixels(
+        pts_cam, batch.f[:, None], batch.cx[:, None], batch.cy[:, None],
+        batch.image_width, batch.image_height,
+        use_principal_point=use_principal_point,
+    )
+
+
+def pixel_rays(
+    batch: CameraBatch,
+    pixel_coords_ij: torch.Tensor,
+    line_length: float = 10.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays from each camera centre through given (i, j) pixels.
+
+    The direction through pixel (i, j) is the normalized ``((x - ppx) /
+    f, (y - ppy) / f, 1)`` with the FULL principal point ``pp = (W/2 +
+    cx, H/2 + cy)``, scaled to ``line_length`` and expressed in the local
+    frame (reference ``PhotogrammetryCamera.cast_rays``,
+    cameras.py:574-631).
+
+    Args:
+        batch: cameras.
+        pixel_coords_ij: (N, P, 2) per-camera (row, col) pixel coords.
+        line_length: world-frame length of each returned segment.
+
+    Returns (starts, ends), each (N, P, 3): the camera centres
+    (broadcast) and the segments' ends, in the local frame.
+    """
+    x = pixel_coords_ij[..., 1]
+    y = pixel_coords_ij[..., 0]
+    f = batch.f[:, None]
+    ppx = batch.image_width / 2.0 + batch.cx[:, None]
+    ppy = batch.image_height / 2.0 + batch.cy[:, None]
+    dirs = torch.stack([(x - ppx) / f, (y - ppy) / f, torch.ones_like(x)], dim=-1)
+    norm = torch.sqrt(dirs[..., 0] * dirs[..., 0] + dirs[..., 1] * dirs[..., 1]
+                      + dirs[..., 2] * dirs[..., 2])
+    dirs = dirs / norm[..., None]
+    world_dirs = _rotate(dirs, batch.cam_to_world[:, :3, :3])
+    starts = batch.cam_to_world[:, None, :3, 3].expand_as(world_dirs)
+    ends = starts + world_dirs * line_length
+    return starts, ends
 
 
 class CameraSet:
@@ -370,6 +480,203 @@ class CameraSet:
             batch = batch.scaled(image_scale)
         self._batch_cache[key] = batch
         return batch
+
+    # -- detection triangulation -------------------------------------------
+
+    def get_local_scale(self) -> float:
+        """Meters per local unit: cbrt of the local->ECEF determinant
+        (reference utils/geometric.py:97-113)."""
+        t = self.local_to_epsg_4978_transform
+        if t is None:
+            return 1.0
+        return float(np.cbrt(np.linalg.det(t[:3, :3])))
+
+    def calc_line_segments(
+        self,
+        detector,
+        boundaries=None,
+        ray_length_local: float = 1e3,
+        out_dir=None,
+        limit_ray_length_local: Optional[float] = None,
+        limit_angle_from_vert: Optional[float] = None,
+        device="cuda",
+        stats: Optional[dict] = None,
+    ):
+        """Detection centres -> local-frame rays, filtered and clipped
+        (reference cameras.py:1483-1596), as the JAX package's.
+
+        Per camera: the detector's centres, a ray through each (on
+        ``device``); then, in this order, rays farther than
+        ``limit_angle_from_vert`` from vertical dropped, the rest clipped
+        between the (ceiling, floor) covering meshes of ``boundaries``,
+        and the length cap measured from the original origins (with or
+        without the clip).  Returns ``{"ray_starts", "ray_ends",
+        "ray_IDs"}``, or the path of ``line_segments.npz`` in ``out_dir``.
+        ``stats``, when given, gets the seconds of the rays (``rays_s``)
+        and of the clip (``clip_s``).
+        """
+        from geograypher_tpu_torch.ops.raycast import clip_line_segments
+
+        device = resolve_device(device, "CameraSet.calc_line_segments")
+        t0 = time.perf_counter()
+        all_starts, all_ends, all_ids = [], [], []
+        for cam_ind in range(len(self)):
+            fname = str(self.get_image_filename(cam_ind))
+            centers = np.asarray(detector.get_detection_centers(fname))
+            if centers.size == 0:
+                continue
+            batch = self.get_camera_batch([cam_ind], device=device)
+            starts, ends = pixel_rays(
+                batch,
+                torch.as_tensor(centers[None], dtype=torch.float32).to(device),
+                line_length=ray_length_local,
+            )
+            all_starts.append(starts[0].cpu().numpy())
+            all_ends.append(ends[0].cpu().numpy())
+            all_ids.append(np.full(len(centers), cam_ind))
+        t1 = time.perf_counter()
+        if not all_starts:
+            data = {
+                "ray_starts": np.zeros((0, 3)),
+                "ray_ends": np.zeros((0, 3)),
+                "ray_IDs": np.zeros((0,), int),
+            }
+        else:
+            starts = np.concatenate(all_starts)
+            ends = np.concatenate(all_ends)
+            ids = np.concatenate(all_ids)
+            keep = np.ones(len(starts), dtype=bool)
+            if limit_angle_from_vert is not None:
+                dirs = ends - starts
+                dirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+                angle = np.arccos(np.clip(-dirs[:, 2], -1.0, 1.0))
+                keep &= angle <= limit_angle_from_vert
+            starts, ends, ids = starts[keep], ends[keep], ids[keep]
+            origins = starts.copy()
+            if boundaries is not None:
+                (ceil_v, ceil_f), (floor_v, floor_f) = boundaries
+                starts, ends, valid = clip_line_segments(
+                    starts, ends, ceil_v[ceil_f], floor_v[floor_f], device=device
+                )
+            else:
+                valid = np.ones(len(starts), dtype=bool)
+            if limit_ray_length_local is not None:
+                length = np.linalg.norm(ends - origins, axis=1)
+                valid &= length <= limit_ray_length_local
+            data = {"ray_starts": starts[valid], "ray_ends": ends[valid],
+                    "ray_IDs": ids[valid]}
+        if stats is not None:
+            stats.update(rays_s=t1 - t0, clip_s=time.perf_counter() - t1)
+        if out_dir is not None:
+            path = Path(out_dir) / "line_segments.npz"
+            np.savez(path, **data)
+            return path
+        return data
+
+    def triangulate_detections(
+        self,
+        detector,
+        ray_length_meters: float = 1e3,
+        boundaries=None,
+        limit_ray_length_meters: Optional[float] = None,
+        limit_angle_from_vert: Optional[float] = None,
+        similarity_threshold_meters: float = 0.1,
+        transform: Optional[Callable] = None,
+        louvain_resolution: float = 1.0,
+        out_dir: Optional[PATH_TYPE] = None,
+        device="cuda",
+        stats: Optional[dict] = None,
+    ) -> np.ndarray:
+        """Per-image detections -> triangulated 3D object locations
+        (reference cameras.py:1275-1480): rays -> pairwise-intersection
+        graph -> Louvain communities -> per-community triangulation.
+
+        Cached per stage in ``out_dir`` (``line_segments.npz``,
+        ``edge_weights.json``, ``communities.npz``, the JAX package's
+        files): a stage whose file is there is read back instead of run,
+        whichever package wrote it.  Returns (M, 3) (lat, lon, alt) when
+        georeferenced, else local points.  The device work runs on
+        ``device`` (the card by default; raises without one).  ``stats``,
+        when given, gets each stage's seconds (``rays_s``, ``clip_s``,
+        ``blocks_device_s``, ``format_s``, ``louvain_s``,
+        ``average_s``) for the stages that ran.
+        """
+        from geograypher_tpu_torch.ops.triangulate import (
+            calc_communities,
+            calc_graph_weights,
+        )
+
+        device = resolve_device(device, "CameraSet.triangulate_detections")
+        if out_dir is not None:
+            out_dir = Path(out_dir)
+            out_dir.mkdir(parents=True, exist_ok=True)
+        scale = self.get_local_scale()
+
+        seg_path = out_dir / "line_segments.npz" if out_dir else None
+        if seg_path is not None and seg_path.is_file():
+            data = dict(np.load(seg_path))
+        else:
+            data = self.calc_line_segments(
+                detector,
+                boundaries=boundaries,
+                ray_length_local=ray_length_meters / scale,
+                limit_ray_length_local=(
+                    limit_ray_length_meters / scale
+                    if limit_ray_length_meters is not None
+                    else None
+                ),
+                limit_angle_from_vert=limit_angle_from_vert,
+                out_dir=out_dir,
+                device=device,
+                stats=stats,
+            )
+            if out_dir is not None:
+                data = dict(np.load(data))
+
+        starts, ends, ray_IDs = (
+            data["ray_starts"],
+            data["ray_ends"],
+            data["ray_IDs"],
+        )
+        edges_path = out_dir / "edge_weights.json" if out_dir else None
+        if edges_path is not None and edges_path.is_file():
+            with edges_path.open() as fh:
+                edge_weights = [tuple(e) for e in json.load(fh)]
+        else:
+            edge_weights = calc_graph_weights(
+                starts,
+                ends,
+                ray_IDs,
+                similarity_threshold=similarity_threshold_meters / scale,
+                transform=transform,
+                out_dir=out_dir,
+                device=device,
+                stats=stats,
+            )
+            if out_dir is not None:
+                with open(edge_weights) as fh:
+                    edge_weights = [tuple(e) for e in json.load(fh)]
+
+        comm_path = out_dir / "communities.npz" if out_dir else None
+        if comm_path is not None and comm_path.is_file():
+            result = dict(np.load(comm_path))
+        else:
+            result = calc_communities(
+                starts,
+                ends,
+                edge_weights,
+                louvain_resolution=louvain_resolution,
+                transform_to_epsg_4978=self.local_to_epsg_4978_transform,
+                out_dir=out_dir,
+                device=device,
+                stats=stats,
+            )
+            if out_dir is not None:
+                result = dict(np.load(result))
+
+        if "community_points_latlon" in result:
+            return result["community_points_latlon"]
+        return result["community_points"]
 
     def get_image_by_index(self, index: int, image_scale: float = 1.0) -> np.ndarray:
         """Load camera ``index``'s image (.npy or an image file), keeping

@@ -8,9 +8,9 @@ each (``meshes/chunked.py``), when ``n_aggregation_clusters`` or
 ``n_cameras_per_aggregation_cluster`` is given; else, on a CUDA device of
 a machine with more than one card, the survey pipeline over every card
 (``parallel/pipeline.py``); else ``TexturedMesh.aggregate_projected_images``
-on ``device`` (the planned route for large one-hot surveys).  The DTM
-ground relabel and the vector export raise ``NotImplementedError``
-naming their ROADMAP item.
+on ``device`` (the planned route for large one-hot surveys).  The
+predicted classes export as exact per-class polygons.  The DTM ground
+relabel raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -77,10 +77,6 @@ def aggregate_images(
     if DTM_file is not None:
         raise NotImplementedError(
             "the DTM ground relabel is not ported yet (ROADMAP A6)"
-        )
-    if top_down_vector_projection_savefile is not None:
-        raise NotImplementedError(
-            "the top-down vector export is not ported yet (ROADMAP A6)"
         )
     del height_above_ground_threshold, vis
     if isinstance(IDs_to_labels, str):
@@ -160,6 +156,11 @@ def aggregate_images(
     if predicted_face_classes_savefile is not None:
         ensure_containing_folder(predicted_face_classes_savefile)
         np.save(predicted_face_classes_savefile, predicted_face_classes)
+    if top_down_vector_projection_savefile is not None:
+        mesh.export_face_labels_vector(
+            predicted_face_classes,
+            export_file=top_down_vector_projection_savefile,
+        )
     return predicted_face_classes, average_projections
 
 

@@ -15,9 +15,13 @@ from a census, overflowing views re-sized and re-run instead of raising.
 Chunked aggregation and rendering live in ``meshes/chunked.py``, the
 survey pipeline over a list of devices in ``parallel/pipeline.py``.
 
+The detection workflow's pieces live here too: the exact per-class
+vector export and the covering meshes that clip detection rays; sparse
+per-face instance counts are in ``meshes/sparse.py``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): raster (GeoTIFF) textures, the DTM ground relabel and the polygon
-exports (A6).
+item): raster (GeoTIFF) textures, the DTM ground relabel, the raster mode
+of the vector export and polygon labeling (A6).
 """
 
 from __future__ import annotations
@@ -1341,6 +1345,111 @@ class TexturedMesh:
                 "lists dropped candidates, so no file was written for them. "
                 "Pass a RasterConfig with larger caps."
             )
+
+    # -- vector export and covering meshes ------------------------------------
+
+    def export_face_labels_vector(
+        self,
+        face_labels: typing.Optional[np.ndarray] = None,
+        export_file: typing.Optional[PATH_TYPE] = None,
+        label_names: typing.Optional[dict] = None,
+        resolution_m: float = 0.2,
+        mode: str = "exact",
+    ) -> VectorData:
+        """Per-face labels -> geospatial polygons (reference
+        meshes.py:1284-1423), ``mode="exact"``: class regions derived
+        combinatorially from shared mesh edges
+        (:func:`~geograypher_tpu_torch.utils.exact_geometry.class_region_polygons`),
+        every output vertex an exact mesh vertex.  Columns ``class_ID``
+        and ``names``; the working UTM CRS when georeferenced.
+        ``mode="raster"`` (an orthographic render at ``resolution_m``)
+        raises ``NotImplementedError``: it needs ``ortho_pix2face``
+        (ROADMAP A6).
+        """
+        if mode != "exact":
+            raise NotImplementedError(
+                f"export_face_labels_vector(mode={mode!r}) is not ported yet "
+                "(ROADMAP A6): it needs ortho_pix2face; mode='exact' is"
+            )
+        from geograypher_tpu_torch.utils.exact_geometry import class_region_polygons
+
+        if face_labels is None:
+            face_labels = self.get_texture(request_vertex_texture=False)
+        face_labels = np.asarray(face_labels).reshape(-1)
+        crs = self.get_working_projected_CRS() if self.CRS is not None else None
+        verts2d = self.get_vertices_in_CRS(crs)[:, :2]
+        regions = class_region_polygons(verts2d, self.faces, face_labels)
+        label_names = label_names or self.IDs_to_labels or {}
+        geoms, names, ids = [], [], []
+        for c in sorted(regions):
+            for poly in regions[c]:
+                geoms.append(poly)
+                ids.append(int(c))
+                names.append(label_names.get(int(c), int(c)))
+        out = VectorData(
+            geoms,
+            {"class_ID": ids, "names": [str(n) for n in names]},
+            epsg=crs,
+        )
+        if export_file is not None:
+            out.to_file(export_file)
+        return out
+
+    def export_covering_meshes(
+        self,
+        N: int,
+        z_buffer: tuple = (0.0, 0.0),
+        subsample: typing.Optional[int] = None,
+        frame_transform: typing.Optional[np.ndarray] = None,
+    ):
+        """Ceiling/floor covering surfaces over the mesh footprint
+        (reference meshes.py:2366-2447): an (N, N) grid of the per-cell
+        max/min z, returned as (verts, faces) triangle meshes.
+
+        ``frame_transform`` (local->ECEF 4x4) evaluates the covering in a
+        camera set's local frame (the triangulation workflow's frame).
+
+        Returns ((top_verts, top_faces), (bottom_verts, bottom_faces)).
+        """
+        if frame_transform is not None:
+            points = self.get_verts_in_local_frame(frame_transform)
+        else:
+            points = self.verts
+        if subsample is not None:
+            points = points[::subsample]
+        if len(points) == 0:
+            empty = (np.zeros((0, 3)), np.zeros((0, 3), np.int32))
+            return empty, empty
+        x_min, y_min = points[:, 0].min(), points[:, 1].min()
+        x_max, y_max = points[:, 0].max(), points[:, 1].max()
+        cw = max((x_max - x_min) / (N - 1), 1e-9)
+        ch = max((y_max - y_min) / (N - 1), 1e-9)
+        ix = np.clip(np.round((points[:, 0] - x_min) / cw).astype(int), 0, N - 1)
+        iy = np.clip(np.round((points[:, 1] - y_min) / ch).astype(int), 0, N - 1)
+        cell = iy * N + ix
+        z_hi = np.full(N * N, -np.inf)
+        z_lo = np.full(N * N, np.inf)
+        np.maximum.at(z_hi, cell, points[:, 2])
+        np.minimum.at(z_lo, cell, points[:, 2])
+        # empty cells take the global extremes (a conservative cover)
+        z_hi[~np.isfinite(z_hi)] = points[:, 2].max()
+        z_lo[~np.isfinite(z_lo)] = points[:, 2].min()
+        z_hi = z_hi.reshape(N, N) + z_buffer[0]
+        z_lo = z_lo.reshape(N, N) + z_buffer[1]
+
+        xs = np.linspace(x_min, x_max, N)
+        ys = np.linspace(y_min, y_max, N)
+        xx, yy = np.meshgrid(xs, ys, indexing="xy")
+        iy_g, ix_g = np.meshgrid(np.arange(N - 1), np.arange(N - 1), indexing="ij")
+        v00 = (iy_g * N + ix_g).ravel()
+        tri_a = np.stack([v00, v00 + 1, v00 + N + 1], axis=1)
+        tri_b = np.stack([v00, v00 + N + 1, v00 + N], axis=1)
+        faces = np.concatenate([tri_a, tri_b], axis=1).reshape(-1, 3).astype(np.int32)
+
+        top = (np.stack([xx.ravel(), yy.ravel(), z_hi.ravel()], axis=1), faces)
+        bottom = (np.stack([xx.ravel(), yy.ravel(), z_lo.ravel()], axis=1),
+                  faces.copy())
+        return top, bottom
 
     def save_mesh(self, savepath: PATH_TYPE, write_texture: bool = True):
         """Write the geometry (and a vertex texture as colours) as PLY."""

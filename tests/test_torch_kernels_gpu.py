@@ -126,6 +126,36 @@ def test_counts_kernel_wide_table(cuda):
     assert int(got.sum(dtype=torch.int64)) == p2f.numel()
 
 
+
+@pytest.mark.parametrize("n_local", [97, 300])
+def test_counts_kernel_at_the_detection_shape(cuda, n_local):
+    """The sparse detection counts' shape: a view's own detections as the
+    classes (a few hundred), most pixels unlabelled (-1), labelled boxes
+    over a raster's pix2face; then the device triples of
+    ``meshes/sparse.py`` against the plain table's nonzero entries."""
+    setup = view_setup(cuda)
+    cfg = tr.RasterConfig(caps=(4096, 512, 64, 64))
+    p2f, _ = tr.rasterize_setup(setup, cfg, 200, 320)
+    rng = np.random.default_rng(n_local)
+    cls = np.full((200, 320), -1, np.int32)
+    for k in range(n_local):
+        y, x = rng.integers(0, 190), rng.integers(0, 310)
+        cls[y:y + rng.integers(3, 12), x:x + rng.integers(3, 12)] = k
+    cls = torch.as_tensor(cls, device=cuda)
+    n_faces = setup.planes.shape[0]
+    got = face_counts.face_class_counts(p2f, cls, n_faces, n_local)
+    want = face_counts.face_class_counts_plain(p2f, cls, n_faces, n_local)
+    assert torch.equal(got, want) and int(got.sum()) > 0
+    from geograypher_tpu_torch.meshes.sparse import local_class_image
+
+    img = torch.where(cls >= 0, cls.double() * 3 + 7, float("nan"))
+    local, classes = local_class_image(img)
+    assert torch.equal(classes, torch.unique(cls[cls >= 0]).long() * 3 + 7)
+    assert torch.equal(face_counts.face_class_counts(p2f, local, n_faces,
+                                                     classes.numel()),
+                       face_counts.face_class_counts_plain(p2f, local, n_faces,
+                                                           classes.numel()))
+
 ONEHOT_SHAPES = [(5, 7, 2), (33, 31, 3), (1, 1, 10), (64, 64, 16), (30, 50, 32),
                  (9, 11, 100), (3, 5, 700)]
 

@@ -1,8 +1,8 @@
 """The port and chip_smoke.py import no JAX and nothing of the JAX
-package: the machine with the card has no jax (nor cv2, PIL or pandas,
-and is not said to have imageio or sklearn), and the port keeps its own
-copies of the host helpers it needs.  Checked in subprocesses, because
-tests/conftest.py imports jax into this one."""
+package: the machine with the card has no jax (nor cv2, PIL, pandas or
+networkx, and is not said to have imageio or sklearn), and the port keeps
+its own copies of the host helpers it needs.  Checked in subprocesses,
+because tests/conftest.py imports jax into this one."""
 
 import os
 import re
@@ -35,7 +35,7 @@ IMPORT_ALL = REFUSE + r"""
 import importlib, pkgutil
 
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "sklearn")
+           "sklearn", "networkx")
 refuse(*REFUSED)
 import geograypher_tpu_torch
 names = ["chip_smoke"] + [
@@ -48,7 +48,10 @@ assert "geograypher_tpu_torch.utils.vector" in names, names
 assert "geograypher_tpu_torch.parallel.planner" in names, names
 assert "geograypher_tpu_torch.ops.face_sums" in names, names
 for name in ("parallel.pipeline", "parallel.sharding", "meshes.chunked",
-             "utils.kmeans"):
+             "utils.kmeans", "utils.numeric", "utils.louvain", "utils.polyfill",
+             "utils.exact_geometry", "ops.raycast", "ops.triangulate",
+             "meshes.sparse", "entrypoints.project_detections",
+             "entrypoints.multiview_detections"):
     assert "geograypher_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -64,7 +67,7 @@ print(len(names))
 # and 7c (the survey pipeline, chunked aggregation, view sharding)
 CHIP_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "imageio", "sklearn")
+           "imageio", "sklearn", "networkx")
 refuse(*REFUSED)
 import numpy as np
 import chip_smoke as cs
@@ -144,7 +147,7 @@ print("ok")
 # round trip through ``aggregate_images``, and phase 7c's chunked render
 RENDER_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "imageio", "sklearn")
+           "imageio", "sklearn", "networkx")
 refuse(*REFUSED)
 import tempfile
 import numpy as np
@@ -182,6 +185,47 @@ print("ok")
 """
 
 
+# chip_smoke.py's phase 8 at a tiny size on CPU tensors, with the same
+# modules refused: the survey and the objects' detections written to disk,
+# ``project_detections`` against its plain run with the kernels' checks on
+# view 0, ``multiview_detections`` recovering every object, twice and from
+# its cache files
+DETECTION_PATH = REFUSE + r"""
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn", "networkx")
+refuse(*REFUSED)
+import tempfile
+import numpy as np
+import chip_smoke as cs
+
+verts, faces = cs.make_grid_mesh(n=21, size=4.0,
+                                 z_fn=lambda x, y: 0.1 * np.sin(3 * x))
+w, h = 96, 64
+c2ws = []
+for k in range(6):
+    if k % 2 == 0:
+        c = cs.nadir_camera(4.0, 50.0, w)
+        c[:3, 3] += (0.05 * k - 0.1, 0.03 * k, 0.0)
+    else:
+        c = cs.oblique_camera(4.0, 65.0, w, pitch_deg=20.0 + 3 * k,
+                              azimuth_deg=60.0 * k)
+    c2ws.append(c)
+sensors = {0: {"f": 50.0, "image_width": w, "image_height": h},
+           1: {"f": 65.0, "image_width": w, "image_height": h},
+           3: {"f": 65.0, "image_width": w, "image_height": h,
+               "distortion_params": {"k1": 0.02}}}
+with tempfile.TemporaryDirectory() as folder:
+    launches, row = cs._detection_phase(
+        folder, verts, faces, c2ws, sensors, [0, 1, 0, 1, 0, 3],
+        cs.RasterConfig(caps=(512, 128, 64, 64)), w=w, h=h, n_objects=12,
+        box=6.0, device="cpu", timing=False)
+# CPU tensors take the plain versions
+assert not any(launches.values()), launches
+assert row["classes"] == 12 and row["max_abs_err"] == 0
+assert not loaded(*REFUSED), loaded(*REFUSED)
+print("ok")
+"""
+
 def run(code):
     # one intra-op thread: the tiny tensors gain nothing from more, and
     # parallel test workers would oversubscribe the cores
@@ -193,11 +237,12 @@ def run(code):
 
 def test_no_port_file_imports_the_jax_package():
     """A source scan: no import of ``geograypher_tpu`` (or jax, cv2, PIL,
-    pandas, sklearn) in any file of the port or in chip_smoke.py, at
-    module level or lazily; ``imageio`` only in the guarded fallback of
+    pandas, sklearn, networkx) in any file of the port or in chip_smoke.py,
+    at module level or lazily; ``imageio`` only in the guarded fallback of
     ``utils/io.py``."""
     pattern = re.compile(r"^\s*(from|import)\s+"
-                         r"(geograypher_tpu|jax|cv2|PIL|pandas|sklearn)([.\s]|$)")
+                         r"(geograypher_tpu|jax|cv2|PIL|pandas|sklearn|networkx)"
+                         r"([.\s]|$)")
     files = sorted((ROOT / "geograypher_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 25
@@ -217,7 +262,7 @@ def test_no_port_file_imports_the_jax_package():
 def test_port_and_chip_smoke_import_no_jax():
     out = run(IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35  # every module was imported
+    assert int(out.stdout.strip()) >= 45  # every module was imported
 
 
 def test_chip_smoke_path_needs_nothing_of_the_jax_package():
@@ -228,6 +273,12 @@ def test_chip_smoke_path_needs_nothing_of_the_jax_package():
 
 def test_chip_smoke_render_path_needs_nothing_of_the_jax_package():
     out = run(RENDER_PATH)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_chip_smoke_detection_path_needs_nothing_of_the_jax_package():
+    out = run(DETECTION_PATH)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
 

@@ -168,3 +168,40 @@ def test_lookup_segmentor_and_image_io_match_jax(survey, tmp_path):
     got = TLookUp(base, look, n).segment_image(None, fname)
     np.testing.assert_array_equal(got, JLookUp(base, look, n).segment_image(None, fname))
     assert np.isnan(got[labels < 0]).all()
+
+
+def test_numeric_helpers_match_jax():
+    """The port's copy of utils/numeric.py: every helper equal to the JAX
+    package's on the same inputs (intersection_average is held against it
+    in tests/test_torch_detections.py)."""
+    from geograypher_tpu.utils import numeric as jn
+    from geograypher_tpu_torch.utils import numeric as tn
+
+    rng = np.random.default_rng(0)
+    for shape, frac in (((7, 12), 0.25), ((5, 5), 0.0), ((30, 3), 0.6)):
+        np.testing.assert_array_equal(tn.create_ramped_weighting(shape, frac),
+                                      jn.create_ramped_weighting(shape, frac))
+    q = rng.normal(size=4)
+    np.testing.assert_array_equal(tn.quaternion_wxyz_to_matrix(q),
+                                  jn.quaternion_wxyz_to_matrix(q))
+    np.testing.assert_array_equal(tn.rotation_rpy_to_matrix(10.0, -20.0, 33.0),
+                                  jn.rotation_rpy_to_matrix(10.0, -20.0, 33.0))
+    assert list(tn.chunk_slices(11, 4)) == list(jn.chunk_slices(11, 4))
+    dist = rng.uniform(0, 1, (6, 8))
+    dist[dist > 0.6] = np.nan
+    dist[0, 1] = 0.0
+    ids = rng.integers(0, 3, 20)
+    assert (tn.format_graph_edges(slice(2, 8), slice(9, 17), dist, ids)
+            == jn.format_graph_edges(slice(2, 8), slice(9, 17), dist, ids))
+    pts = rng.uniform(-5, 5, (500, 2))
+    np.testing.assert_array_equal(tn.hilbert_argsort_2d(pts), jn.hilbert_argsort_2d(pts))
+    corners = rng.normal(size=(3, 40, 3))
+    for got, want in zip(tn.compute_3D_triangle_area_vectorized(corners),
+                         jn.compute_3D_triangle_area_vectorized(corners)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tn.compute_3D_triangle_area(corners, False),
+                                  jn.compute_3D_triangle_area(corners, False))
+    votes = rng.integers(-1, 4, (50, 7)).astype(float)
+    votes[rng.random((50, 7)) < 0.2] = np.nan
+    np.testing.assert_array_equal(tn.fair_mode_non_nan(votes, seed=3),
+                                  jn.fair_mode_non_nan(votes, seed=3))

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's aggregation, render and detection paths once on one CUDA card.
+"""Drive the PyTorch port's aggregation, render, detection, DTM and polygon paths once on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -104,7 +104,27 @@ Phases (each prints one line; any failure raises and exits nonzero):
    no community farther than that from every object, the same points from
    a second run and from the cache files, and the stage times (rays,
    clip, the graph's device blocks and host formatting, Louvain,
-   averaging).
+   averaging);
+9. GeoTIFF, DTM, the orthographic raster and polygons on phase 8's survey
+   on disk: ``"9a"`` writes a 4096 x 4096 float32 DTM GeoTIFF (deflate,
+   256 x 256 tiles) lying a known offset below the mesh in its UTM CRS,
+   reads it with the port's codec, holds every vertex's height above
+   ground against the offset within its sampling error, runs
+   ``render_height_masks`` (PNG masks of the 20 views, float renders of
+   every 5th: each mask equal to its render thresholded but within a
+   face's height spread of a threshold) and ``aggregate_images`` with the
+   DTM on the planned route (one launch a view and kernel; faces below the
+   ground threshold relabelled, the others' classes back); ``"9b"``,
+   ``ortho_pix2face`` at 1.6 mm (2551 x 2551 px, f ~1e5) on census-sized
+   caps with zero overflow, the raster kernel bit-equal to its plain
+   version there, the footprint again in 3 x 3 tiles (every pasted tile
+   bit-equal to its plain version; the share equal to the untiled map a
+   reading), both maps in windows and at every knife-edge hole against
+   the float64 oracle at their own focal length, and a ~10000 px ortho in
+   2 x 2 tiles (one tile against the plain version); ``"9c"``, phase 5's six star polygons painted on the mesh, the
+   raster vector export, and the ``label_polygons`` entry point without
+   and with the DTM and in the exact mode (every polygon no other overlaps
+   labelled with its own species), with their stage times.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -147,8 +167,10 @@ from geograypher_tpu_torch.cameras.distortion import remap_image, remap_image_to
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
+from geograypher_tpu_torch.entrypoints.label_polygons import label_polygons
 from geograypher_tpu_torch.entrypoints.multiview_detections import multiview_detections
 from geograypher_tpu_torch.entrypoints.project_detections import project_detections
+from geograypher_tpu_torch.entrypoints.render_height_masks import render_height_masks
 from geograypher_tpu_torch.entrypoints.render_labels import render_labels
 from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.meshes import chunked, sparse
@@ -172,6 +194,7 @@ from geograypher_tpu_torch.ops.rasterize import (
     rasterize_triangles,
     setup_from_soa,
     setup_triangles,
+    transform_to_camera,
 )
 from geograypher_tpu_torch.parallel import pipeline, planner, sharding
 from geograypher_tpu_torch.ops.raycast import clip_line_segments
@@ -181,6 +204,7 @@ from geograypher_tpu_torch.predictors.segmentors import (
 )
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import PinnedUpload
+from geograypher_tpu_torch.utils.exact_geometry import polygon_intersection_area
 from geograypher_tpu_torch.utils.example_data import (
     local_to_ecef_frame,
     make_metashape_xml,
@@ -199,6 +223,7 @@ from geograypher_tpu_torch.utils.io import (
     write_image,
 )
 from geograypher_tpu_torch.utils.meshio import save_mesh
+from geograypher_tpu_torch.utils.raster import Raster, read_geotiff, write_geotiff
 from geograypher_tpu_torch.utils.vector import Polygon, VectorData
 
 N_CLASSES = 10
@@ -352,30 +377,32 @@ def _box_pixels(setup, faces=None):
     return int(torch.where(keep, (py1 - py0 + 1) * (px1 - px0 + 1), 0).sum())
 
 
-def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None):
+def _raster_bound(setup, planes, cand, counts, cfg, s_init=None, s_mask8=None,
+                  h=H, w=W):
     """The tile raster's bound on this view: each face of the tile lists
     (those level S did not take, ``s_mask8``) over its own box; each
     input read once, the pix2face written once.  Also the candidate-pixels
     the kernel evaluates (every group candidate over the warp rectangles
     its cull box meets, ``raster_tiles.kernel_cand_pixels``) and what
     whole tiles would cost: every L0 tile's in-image pixels against its
-    own, its L1 and L2 parents' and the global list's counts."""
+    own, its L1 and L2 parents' and the global list's counts.  The image
+    is ``h`` x ``w`` (default the 4K views')."""
     th, tw = cfg.tile_h, cfg.tile_w
-    nty0, ntx0 = cfg.grids(H, W)[0]
-    p1, p2 = raster_tiles._parents(cfg, H, W, planes.device)
+    nty0, ntx0 = cfg.grids(h, w)[0]
+    p1, p2 = raster_tiles._parents(cfg, h, w, planes.device)
     n = (counts[0].long() + counts[1].long()[p1] + counts[2].long()[p2]
          + counts[3].long())
     t = torch.arange(nty0 * ntx0, device=planes.device)
-    pix = ((H - t // ntx0 * th).clamp(max=th) * (W - t % ntx0 * tw).clamp(max=tw))
+    pix = ((h - t // ntx0 * th).clamp(max=th) * (w - t % ntx0 * tw).clamp(max=tw))
     tile_pixels = int((n * pix).sum())
     cand_pixels = raster_tiles.kernel_cand_pixels(planes, setup.bbox, cand, counts,
-                                                  cfg, H, W)
+                                                  cfg, h, w)
     listed = (None if s_mask8 is None
               else ~s_mask8.repeat_interleave(cfg.bin_block))
     need_pixels = _box_pixels(setup, listed)
     n_bytes = (planes.numel() * 4 + sum(c.numel() * 4 for c in cand)
-               + sum(c.numel() * 4 for c in counts) + H * W * 4
-               + (0 if s_init is None else 2 * H * W * 4))
+               + sum(c.numel() * 4 for c in counts) + h * w * 4
+               + (0 if s_init is None else 2 * h * w * 4))
     return (_bound(n_bytes, FLOP_PER_CAND_PIXEL * need_pixels), need_pixels,
             cand_pixels, tile_pixels)
 
@@ -1143,10 +1170,15 @@ def main():
         launches_8, det_row = _detection_phase(
             folder, verts, faces, _suite_cameras(n_views=PIPELINE_VIEWS), sensors,
             _suite_sensor_ids(PIPELINE_VIEWS), RasterConfig(caps=caps_d), card=smi)
+        # -- phase 9: DTM, orthographic raster, polygons on phase 8's survey ---
+        launches_9, ortho_row, ortho_big_row = _phase9(
+            folder, _survey_of(Path(folder) / "detections"), verts,
+            RasterConfig(caps=caps_d), dev, card=smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
-    # the kernels' launches on phases 7, 7c and 8's paths
+    # the kernels' launches on phases 7, 7c, 8 and 9's paths
     later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
-             + launches_7s[name] + launches_8[name] for name in launches_7}
+             + launches_7s[name] + launches_8[name] + launches_9[name]
+             for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
     # level-S path, phase 5's two entry points, phase 6's planned route,
@@ -1173,7 +1205,14 @@ def main():
              ms=mean(main_rows, "raster_ms"),
              plain_ms=mean(main_rows, "raster_plain_ms"),
              bound_ms=mean(main_rows, "raster_bound_ms"),
-             bound_by=main_rows[0]["raster_bound_by"], library_ms=None),
+             bound_by=main_rows[0]["raster_bound_by"], library_ms=None,
+             # phase 9b: the orthographic camera (f ~1e5) at ~2500 px and on
+             # one ~5000 px tile of the ~10000 px ortho
+             ortho_shape=ortho_row["shape"], ortho_ms=ortho_row["ms"],
+             ortho_plain_ms=ortho_row["plain_ms"], ortho_bound_ms=ortho_row["bound_ms"],
+             ortho_big_shape=ortho_big_row["shape"], ortho_big_ms=ortho_big_row["ms"],
+             ortho_big_plain_ms=ortho_big_row["plain_ms"],
+             ortho_big_bound_ms=ortho_big_row["bound_ms"]),
         dict(name="face_class_counts", route="cuda",
              source="geograypher_tpu_torch/csrc/face_class_counts.cu",
              replaces=", ".join(TPU_KERNELS[k] for k in ("B2", "B3", "B4", "B6")),
@@ -1660,6 +1699,16 @@ def _label_polygons(origin_xy, size, seed=0):
     return polys, names
 
 
+def _survey_of(folder, n_views=None):
+    """The files of a survey :func:`_write_survey` wrote into ``folder``
+    (``n_views`` views, default the pipeline suite's)."""
+    folder = Path(folder)
+    names = [f"view_{k:02d}.png" for k in range(n_views or PIPELINE_VIEWS)]
+    return dict(mesh_file=folder / "mesh.ply", cameras_file=folder / "cameras.xml",
+                labels_file=folder / "labels.geojson", image_folder=folder / "images",
+                render_folder=folder / "renders", names=names)
+
+
 def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height,
                   size=4.0, lat=36.0, lon=-119.0, phase="5a"):
     """Phase 5a: the survey on disk.  The mesh as a binary PLY in its local
@@ -1683,9 +1732,7 @@ def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height
     polys, species = _label_polygons(origin[:2], size)
     labels_file = folder / "labels.geojson"
     VectorData(polys, {"species": species}, epsg=utm).to_file(labels_file)
-    survey = dict(mesh_file=mesh_file, cameras_file=cameras_file,
-                  labels_file=labels_file, image_folder=folder / "images",
-                  render_folder=folder / "renders", names=names)
+    survey = _survey_of(folder, len(c2ws))
     _line(phase, faces=int(len(faces)), views=len(c2ws), image=[height, width],
           mesh_bytes=mesh_file.stat().st_size, polygons=len(polys),
           species=sorted(set(species)), utm_epsg=utm,
@@ -2617,6 +2664,516 @@ def _detection_phase(folder, verts, faces, c2ws, sensors, sensor_ids, cfg, w=W, 
           second_stages_s={k: round(v, 4) for k, v in tri["second"][2].items()},
           card=card)
     return launches, kernel_row
+
+
+# -- phase 9: GeoTIFF and DTM, the orthographic raster, polygon labelling ------------
+
+DTM_SIZE = 4096  # px a side: 64 MB of float32
+DTM_TILE = (256, 256)
+DTM_PAD_M = 0.2  # the DTM's margin around the mesh footprint
+# the DTM lies HAG_BASE + HAG_SLOPE * x below the grid's surface (local x, m)
+HAG_BASE, HAG_SLOPE = 0.05, 0.025
+HEIGHT_THRESHOLDS = (0.05, 0.09)  # render_height_masks: low, canopy
+GROUND_THRESHOLD = 0.02  # aggregate_images' DTM ground relabel
+HEIGHT_MARGIN = 0.01  # faces this far from every threshold keep their class
+HEIGHT_CLASSES = {0: "flat", 1: "low", 2: "canopy"}
+ORTHO_RES_M = 0.0016  # ~2500 px over the 4 m scene, ~6 px a face
+ORTHO_TILED_MAX_PIXELS = 1024  # the same footprint in 3 x 3 tiles
+ORTHO_BIG_RES_M = 0.0004  # ~10000 px: 2 x 2 tiles of ~5000 px
+GROUND_VOTING_WEIGHT = 0.01
+# knife-edge holes (a background pixel among faces: its centre on a shared
+# edge both faces' float32 edge functions reject) allowed in an ortho map,
+# each one also in the plain version's map
+HOLE_MAX_SHARE = 1e-6
+ORTHO_ORACLE_PX = 48  # a side of an ortho window held against the float64 oracle
+
+
+def _surface(x, y):
+    """The bench grid's height field (``_bench_scene``)."""
+    return 0.1 * np.sin(3 * x) * np.cos(3 * y)
+
+
+def _hag_truth(x):
+    """The analytic height of the grid's surface above the DTM."""
+    return HAG_BASE + HAG_SLOPE * x
+
+
+def _write_dtm(path, mesh, local):
+    """A DTM_SIZE^2 float32 GeoTIFF (deflate, tiled) over the mesh's
+    footprint in its working UTM CRS, ``_hag_truth`` below the surface.
+    The survey's local frame is tilted against the ellipsoid's normal, so
+    an affine map from local (x, y, z) to (easting, northing, altitude),
+    fitted on the vertices (``local``; residual returned), places the
+    surface: each pixel centre's local (x, y) by a fixed-point iteration
+    on the height field, its altitude less the offset there.  Returns
+    (pixel size in m, the fit's largest residual in m, write seconds)."""
+    utm = mesh.get_working_projected_CRS()
+    uv = mesh.get_vertices_in_CRS(utm)[:, :2]
+    alt = crs_utils.transform_points(mesh.verts, mesh.CRS, 4326)[:, 2]
+    x0, y0 = uv.min(axis=0) - DTM_PAD_M
+    x1, y1 = uv.max(axis=0) + DTM_PAD_M
+    res = max(x1 - x0, y1 - y0) / DTM_SIZE
+    world = np.concatenate([uv - np.array([x0, y1]), alt[:, None]], axis=1)
+    homog = np.concatenate([local, np.ones((len(local), 1))], axis=1)
+    fit, *_ = np.linalg.lstsq(homog[::17], world[::17], rcond=None)  # (4, 3)
+    residual = float(np.abs(homog @ fit - world).max())
+    inv_xy = np.linalg.inv(fit[:2, :2])
+    cols = (np.arange(DTM_SIZE) + 0.5) * res
+    heights = np.empty((DTM_SIZE, DTM_SIZE), np.float32)
+    for r0 in range(0, DTM_SIZE, 512):
+        rows = -(np.arange(r0, min(r0 + 512, DTM_SIZE)) + 0.5) * res
+        east = np.broadcast_to(cols[None, :], (len(rows), DTM_SIZE)) - fit[3, 0]
+        north = np.broadcast_to(rows[:, None], (len(rows), DTM_SIZE)) - fit[3, 1]
+        z = np.zeros_like(east)
+        for _ in range(5):  # contracts by the tilt times the slope, ~1e-3
+            ex, ny = east - z * fit[2, 0], north - z * fit[2, 1]
+            lx = ex * inv_xy[0, 0] + ny * inv_xy[1, 0]
+            ly = ex * inv_xy[0, 1] + ny * inv_xy[1, 1]
+            z = _surface(lx, ly)
+        surface_alt = lx * fit[0, 2] + ly * fit[1, 2] + z * fit[2, 2] + fit[3, 2]
+        heights[r0:r0 + len(rows)] = surface_alt - _hag_truth(lx)
+    t0 = time.perf_counter()
+    write_geotiff(path, Raster(heights, (res, 0.0, x0, 0.0, -res, y1), utm),
+                  compression="deflate", tile=DTM_TILE)
+    return res, residual, time.perf_counter() - t0
+
+
+def _dtm_phase(folder, survey, verts, cfg, dev, card=None):
+    """Phase 9a: a DTM under the survey of phase 8, its heights above
+    ground against the analytic ones, ``render_height_masks`` (PNG masks of
+    every view, float renders of every 5th) and ``aggregate_images`` with
+    the DTM's ground relabel on the planned route.  Returns (the mesh,
+    the DTM file, the kernels' launches)."""
+    folder = Path(folder)
+    on = {} if dev.type == "cuda" else {"device": dev}  # the card: the default
+    on_card = dev.type == "cuda"
+    mesh = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                        raster_config=cfg, device=dev)
+    dtm = folder / "dtm.tif"
+    res, residual, write_s = _write_dtm(dtm, mesh, verts)
+    t0 = time.perf_counter()
+    raster = read_geotiff(dtm)
+    read_s = time.perf_counter() - t0
+    if raster.data.shape != (DTM_SIZE, DTM_SIZE) or raster.epsg != mesh.get_working_projected_CRS():
+        raise RuntimeError(f"DTM read back as {raster.data.shape}, EPSG {raster.epsg}")
+    t0 = time.perf_counter()
+    hag = mesh.get_height_above_ground(dtm)
+    hag_s = time.perf_counter() - t0
+    # nearest sampling: the surface's altitude less the offset moves by at
+    # most its slope (the height field's, the offset's and 0.01 for the
+    # frame's tilt and scale) times half a pixel's diagonal, plus the fit's
+    # residual (the earth's curvature over 3 m, ~1e-6 m)
+    slope = math.hypot(0.3 + HAG_SLOPE, 0.3) + 0.01
+    tolerance = slope * res * math.sqrt(2) / 2 + residual + 1e-5
+    hag_err = float(np.abs(hag - _hag_truth(verts[:, 0])).max())
+    if not np.isfinite(hag).all() or hag_err > tolerance:
+        raise RuntimeError(f"height above ground off the analytic one by {hag_err} m "
+                           f"(tolerance {tolerance})")
+
+    # render_height_masks: uint8 masks of every view, float renders of every 5th
+    out = {}
+    _reset_launches()
+    for kind, kw in (("png", {}), ("npy", dict(binary_masks=False, take_every_nth_camera=5))):
+        _sync(dev)
+        t0 = time.perf_counter()
+        render_height_masks(survey["mesh_file"], survey["cameras_file"],
+                            survey["image_folder"], dtm, folder / f"heights_{kind}",
+                            ground_threshold=HEIGHT_THRESHOLDS[0],
+                            canopy_threshold=HEIGHT_THRESHOLDS[1], raster_config=cfg,
+                            **on, **kw)
+        _sync(dev)
+        out[kind] = time.perf_counter() - t0
+    launches = _launches()
+    n_views = len(survey["names"])
+    n_float = len(range(0, n_views, 5))
+    if launches["raster_tiles"] != (n_views + n_float) * on_card:
+        raise RuntimeError(f"render_height_masks launches {launches} for "
+                           f"{n_views} + {n_float} views")
+    # each mask against its view's float render: equal to the render
+    # thresholded but where a face's vertices straddle a threshold (the
+    # mask's face takes its vertices' majority class, the float render their
+    # mean height), so only within the widest face's height spread of one
+    spread = float(np.ptp(hag[mesh.faces], axis=1).max()) + 1e-6
+    mismatched = checked = 0
+    for k in range(0, n_views, 5):
+        name = Path(survey["names"][k]).stem
+        mask = read_image_or_numpy(folder / "heights_png" / f"{name}.png")
+        height = np.load(folder / "heights_npy" / f"{name}.npy")
+        seen = np.isfinite(height)
+        if mask.shape != height.shape or not np.array_equal(mask == 255, ~seen):
+            raise RuntimeError(f"view {k}: mask and float render see different pixels")
+        want = ((height >= HEIGHT_THRESHOLDS[0]).astype(np.uint8)
+                + (height >= HEIGHT_THRESHOLDS[1]))
+        off = seen & (mask != want)
+        near = np.min([np.abs(height - t) for t in HEIGHT_THRESHOLDS], axis=0)
+        if (near[off] > spread).any():
+            raise RuntimeError(f"view {k}: {int((near[off] > spread).sum())} mask pixels "
+                               "differ from the thresholded float render off a threshold")
+        mismatched += int(off.sum())
+        checked += int(seen.sum())
+    classes_seen = sorted(int(c) for c in np.unique(read_image_or_numpy(
+        folder / "heights_png" / survey["names"][0])))
+
+    # aggregate_images on the masks, with the DTM's ground relabel
+    _reset_launches()
+    routes = _RouteLog()
+    route_logger = logging.getLogger("geograypher_tpu_torch")
+    level = route_logger.level
+    route_logger.setLevel(logging.INFO)
+    route_logger.addHandler(routes)
+    _sync(dev)
+    t0 = time.perf_counter()
+    pred, avg = aggregate_images(
+        survey["mesh_file"], survey["cameras_file"], image_folder=folder / "heights_png",
+        label_folder=folder / "heights_png", take_every_nth_camera=None,
+        n_classes=len(HEIGHT_CLASSES), IDs_to_labels=HEIGHT_CLASSES, DTM_file=dtm,
+        height_above_ground_threshold=GROUND_THRESHOLD, raster_config=cfg, **on)
+    _sync(dev)
+    agg_s = time.perf_counter() - t0
+    route_logger.removeHandler(routes)
+    route_logger.setLevel(level)
+    agg_launches = _launches()
+    route = [m for _, m in routes.records if "aggregate_projected_images" in m]
+    if not route or "planned" not in route[-1]:
+        raise RuntimeError(f"aggregate_images with a DTM took no planned route: {route}")
+    if any(agg_launches[k] != n_views * on_card
+           for k in ("raster_tiles", "face_class_counts", "onehot_class")):
+        raise RuntimeError(f"aggregate_images launches {agg_launches} for {n_views} views")
+    truth = np.zeros(len(hag))
+    truth[hag >= HEIGHT_THRESHOLDS[0]] = 1
+    truth[hag >= HEIGHT_THRESHOLDS[1]] = 2
+    # a face's class in the masks: its vertices' majority (ties to the
+    # lowest class, as vert_to_face_discrete breaks them)
+    votes = truth[mesh.faces].astype(int)
+    face_class = np.stack([(votes == c).sum(axis=1) for c in range(3)], axis=1).argmax(axis=1)
+    low = (hag[mesh.faces] < GROUND_THRESHOLD).all(axis=1)
+    # the classes come back through vertices (faces -> vertices -> the
+    # relabel -> faces), which blends them along class borders: held on the
+    # faces whose vertices all lie HEIGHT_MARGIN or more from every threshold
+    near = np.min([np.abs(hag - t) for t in HEIGHT_THRESHOLDS + (GROUND_THRESHOLD,)],
+                  axis=0)
+    interior = (near[mesh.faces] >= HEIGHT_MARGIN).all(axis=1) & ~low
+    seen = np.isfinite(pred)
+    ground_id = len(HEIGHT_CLASSES)
+    if not (pred[seen & low] == ground_id).all() or not (seen & low).any():
+        raise RuntimeError(f"DTM relabel: {int((pred[seen & low] != ground_id).sum())} of "
+                           f"{int((seen & low).sum())} faces below {GROUND_THRESHOLD} m "
+                           "not ground")
+    agree = float((pred[seen & interior] == face_class[seen & interior]).mean())
+    if agree < ROUND_TRIP_MIN_AGREE:
+        raise RuntimeError(f"aggregate_images with a DTM: {agree} of the faces above "
+                           "ground came back")
+    high = seen & ~low
+    agree_all = float((pred[high] == face_class[high]).mean())
+    del face_class, votes
+    for k, v in agg_launches.items():
+        launches[k] += v
+    _line("9a", dtm_px=DTM_SIZE, dtm_tile=list(DTM_TILE), dtm_res_m=res,
+          dtm_bytes=dtm.stat().st_size, dtm_write_s=round(write_s, 4),
+          dtm_read_s=round(read_s, 4), fit_residual_m=residual,
+          hag_s=round(hag_s, 4), hag_max_err_m=hag_err, hag_tolerance_m=tolerance,
+          height_masks_s=round(out["png"], 4), height_renders_s=round(out["npy"], 4),
+          masks_per_s=round(n_views / out["png"], 4), mask_classes=classes_seen,
+          mask_pixels_off_threshold=mismatched, mask_pixels_checked=checked,
+          face_spread_m=spread, aggregate_s=round(agg_s, 4), route=route[-1],
+          faces_seen=int(seen.sum()), ground_faces=int((seen & low).sum()),
+          interior_faces=int((seen & interior).sum()), interior_agree=agree,
+          above_ground_agree=agree_all, launches=launches, card=card)
+    return mesh, dtm, launches
+
+
+def _ortho_caps(mesh, plan):
+    """Caps from the census of every tile of an orthographic plan."""
+    census = mesh.ortho_raster_census(plan, RasterConfig())
+    return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
+
+
+def _hole_mask(p2f):
+    """Background pixels whose four neighbours all see a face: a pixel
+    centre on a shared edge that both faces' float32 edge functions
+    reject (they are not exact negations of each other)."""
+    p = torch.as_tensor(p2f)
+    holes = torch.zeros_like(p, dtype=torch.bool)
+    inner = p[1:-1, 1:-1] < 0
+    for sl in ((slice(None, -2), slice(1, -1)), (slice(2, None), slice(1, -1)),
+               (slice(1, -1), slice(None, -2)), (slice(1, -1), slice(2, None))):
+        inner &= p[sl] >= 0
+    holes[1:-1, 1:-1] = inner
+    return holes
+
+
+def _ortho_kernel_vs_plain(plan, cfg, k=0, timed=True):
+    """The raster kernel against its plain version on tile ``k`` of an
+    orthographic plan, bit for bit; both timed (``timed``), with the
+    bound."""
+    i0, j0, w2c = plan.tiles[k]
+    h, w = plan.tile_h, plan.tile_w
+    setup = setup_triangles(transform_to_camera(plan.tri, w2c), plan.focal, w, h,
+                            cfg.znear)
+    binned = bin_triangles(setup, cfg, h, w)
+    if int(binned.overflow):
+        raise RuntimeError(f"ortho tile {k}: caps {cfg.caps} overflow")
+    cand, counts = binned_face_lists(binned, cfg)
+    planes, bbox = setup.planes.contiguous(), setup.bbox
+    p2f = raster_tiles.raster_tiles(planes, bbox, cand, counts, cfg, h, w)
+    plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, h, w)
+    _sync(plain.device)
+    if not torch.equal(p2f, plain):
+        agree, bg = _knife_edge(p2f, plain)
+        raise RuntimeError(f"ortho tile {k} ({h}x{w}): kernel vs plain "
+                           f"{int((p2f != plain).sum())} pixels differ ({bg} face vs "
+                           "background)")
+    (bound_ms, bound_by), need, cand_px, _ = _raster_bound(
+        setup, planes, cand, counts, cfg, h=h, w=w)
+    timed = timed and planes.device.type == "cuda"  # CUDA events: on the card only
+    row = dict(shape=[h, w], focal=plan.focal, max_abs_err=0,
+               ms=_cuda_ms(lambda: raster_tiles.raster_tiles(
+                   planes, bbox, cand, counts, cfg, h, w)) if timed else None,
+               plain_ms=_cuda_ms(lambda: raster_tiles.raster_tiles_plain(
+                   planes, cand, counts, cfg, h, w), runs=3) if timed else None,
+               bound_ms=bound_ms, bound_by=bound_by, need_pixels=need,
+               cand_pixels=cand_px, list_entries=[int(c.sum()) for c in counts])
+    return p2f, row
+
+
+def _ortho_oracle(plan, p2f, centres, size=ORTHO_ORACLE_PX):
+    """Windows of an orthographic map against the float64 brute-force
+    oracle at the plan's own focal length (~1e5): the depth planes and the
+    cull margin at that scale.  A window of ``size`` px a side around each
+    (row, column) of ``centres``, cut to the pasted part of its tile, is
+    rendered by that tile's camera from the same float32 triangles and
+    matrix; only the faces whose projected box meets the window go to the
+    oracle, its principal point moved so that they land where the tile
+    puts them.  Returns (agreement, the smallest window's agreement, the
+    face-vs-background pixels as (row, column, map, oracle))."""
+    tri = plan.tri.cpu().numpy().astype(np.float64)
+    cams = {}
+    same = total = 0
+    worst, background = 1.0, []
+    for r, c in centres:
+        k = next(k for k, (i0, j0, _) in enumerate(plan.tiles)
+                 if i0 <= r < i0 + plan.tile_h and j0 <= c < j0 + plan.tile_w)
+        i0, j0, w2c = plan.tiles[k]
+        if k not in cams:
+            m = w2c.cpu().numpy().astype(np.float64)
+            cam = tri @ m[:3, :3].T + m[:3, 3]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                px = plan.focal * cam[..., :2] / cam[..., 2:] + np.array(
+                    [plan.tile_w / 2.0, plan.tile_h / 2.0])
+            cams[k] = cam, px
+        cam, px = cams[k]
+        hh = min(size, plan.tile_h, plan.height - i0)
+        ww = min(size, plan.tile_w, plan.width - j0)
+        r0 = int(np.clip(r - i0 - hh // 2, 0, min(plan.tile_h, plan.height - i0) - hh))
+        c0 = int(np.clip(c - j0 - ww // 2, 0, min(plan.tile_w, plan.width - j0) - ww))
+        near = np.flatnonzero(
+            (px[:, :, 0].min(1) <= c0 + ww + 1) & (px[:, :, 0].max(1) >= c0 - 1)
+            & (px[:, :, 1].min(1) <= r0 + hh + 1) & (px[:, :, 1].max(1) >= r0 - 1))
+        sub = cam[near].copy()
+        sub[..., 0] += sub[..., 2] * (plan.tile_w / 2.0 - c0 - ww / 2.0) / plan.focal
+        sub[..., 1] += sub[..., 2] * (plan.tile_h / 2.0 - r0 - hh / 2.0) / plan.focal
+        local = brute_force_pix2face(sub, plan.focal, ww, hh)
+        oracle = np.where(local >= 0, near[np.clip(local, 0, None)], -1)
+        got = p2f[i0 + r0:i0 + r0 + hh, j0 + c0:j0 + c0 + ww]
+        equal = got == oracle
+        same, total = same + int(equal.sum()), total + equal.size
+        worst = min(worst, float(equal.mean()))
+        for y, x in zip(*np.nonzero(~equal & ((got < 0) | (oracle < 0)))):
+            background.append((i0 + r0 + int(y), j0 + c0 + int(x), int(got[y, x]),
+                               int(oracle[y, x])))
+    return same / total, worst, sorted(set(background))
+
+
+def _oracle_check(name, plan, p2f, centres):
+    """:func:`_ortho_oracle` on ``centres`` and the map's holes: the
+    knife-edge contract (``ORACLE_MIN_AGREE``, face-vs-background only at
+    a hole, which the caller has shown in the plain version's map too);
+    at most ``HOLE_MAX_SHARE`` of the pixels are holes.  Returns the
+    fields of the phase's line."""
+    holes = [tuple(int(v) for v in rc) for rc in torch.nonzero(_hole_mask(p2f)).tolist()]
+    agree, worst, background = _ortho_oracle(plan, p2f, list(centres) + holes)
+    stray = [b for b in background if b[:2] not in holes]
+    if agree < ORACLE_MIN_AGREE or stray or len(holes) > HOLE_MAX_SHARE * p2f.size:
+        raise RuntimeError(f"{name} ortho vs the float64 oracle: agree {agree}, face vs "
+                           f"background off the holes {stray}, holes {holes}")
+    return dict(windows=len(centres) + len(holes), window_px=ORTHO_ORACLE_PX,
+                agree=agree, worst_window=worst, holes=holes,
+                oracle_at_holes=[b[3] for b in background if b[:2] in holes])
+
+
+def _ortho_phase(mesh, dev, card=None):
+    """Phase 9b: ``ortho_pix2face`` at ``ORTHO_RES_M`` on census-sized
+    caps (the kernel against its plain version, bit for bit), the same
+    footprint in 3 x 3 tiles (every pasted tile bit-equal to its plain
+    version), both held against the float64 oracle in windows and at
+    every hole, and a ~10000 px ortho in 2 x 2 tiles (one tile against the
+    plain version).  Returns (the untiled configuration, the kernel row,
+    the launches)."""
+    _reset_launches()
+    plan = mesh.ortho_plan(resolution_m=ORTHO_RES_M)
+    census, caps = _ortho_caps(mesh, plan)
+    cfg = mesh.raster_config = RasterConfig(caps=caps)
+    stats = {}
+    _sync(dev)
+    t0 = time.perf_counter()
+    p2f, bounds, epsg = mesh.ortho_pix2face(resolution_m=ORTHO_RES_M, stats=stats)
+    ortho_s = time.perf_counter() - t0
+    launches = _launches()
+    tile, row = _ortho_kernel_vs_plain(plan, cfg)
+    if not np.array_equal(tile.cpu().numpy(), p2f):
+        raise RuntimeError("ortho_pix2face differs from its tile's kernel run")
+    coverage = float((p2f >= 0).mean())
+    faces_seen = int(np.unique(p2f[p2f >= 0]).size)
+    h, w = p2f.shape
+    oracle = _oracle_check("untiled", plan, p2f, [
+        (int(h * fy), int(w * fx)) for fy, fx in
+        ((0.5, 0.5), (0.25, 0.25), (0.25, 0.75), (0.75, 0.25), (0.75, 0.75))])
+    # the same footprint in tiles of at most ORTHO_TILED_MAX_PIXELS
+    plan_t = mesh.ortho_plan(resolution_m=ORTHO_RES_M, max_pixels=ORTHO_TILED_MAX_PIXELS)
+    _, caps_t = _ortho_caps(mesh, plan_t)
+    cfg_t = mesh.raster_config = RasterConfig(caps=caps_t)
+    _reset_launches()
+    p2f_t, bounds_t, _ = mesh.ortho_pix2face(resolution_m=ORTHO_RES_M,
+                                             max_pixels=ORTHO_TILED_MAX_PIXELS)
+    for key, n in _launches().items():
+        launches[key] += n
+    if bounds_t != bounds or p2f_t.shape != p2f.shape:
+        raise RuntimeError(f"tiled ortho: bounds {bounds_t}, shape {p2f_t.shape} against "
+                           f"{bounds}, {p2f.shape}")
+    for k, (i0, j0, _) in enumerate(plan_t.tiles):
+        own, _ = _ortho_kernel_vs_plain(plan_t, cfg_t, k, timed=False)
+        hk, wk = min(plan_t.tile_h, h - i0), min(plan_t.tile_w, w - j0)
+        if not np.array_equal(own.cpu().numpy()[:hk, :wk], p2f_t[i0:i0 + hk, j0:j0 + wk]):
+            raise RuntimeError(f"tiled ortho: tile {k} at ({i0}, {j0}) is not its own "
+                               "kernel run")
+    oracle_t = _oracle_check("tiled", plan_t, p2f_t, [
+        (i0 + min(plan_t.tile_h, h - i0) // 2, j0 + min(plan_t.tile_w, w - j0) // 2)
+        for i0, j0, _ in plan_t.tiles])
+    # every tile's camera stands at its own distance above its own centre
+    # (as the JAX package's), so the two maps part by the perspective
+    # (ROADMAP C4): the share of equal pixels is a reading, not a check
+    agree_t, bg_t = _knife_edge(torch.as_tensor(p2f_t), torch.as_tensor(p2f))
+    # ~10000 px: 2 x 2 tiles of ~5000 px at the default max_pixels
+    plan_b = mesh.ortho_plan(resolution_m=ORTHO_BIG_RES_M)
+    census_b, caps_b = _ortho_caps(mesh, plan_b)
+    cfg_b = mesh.raster_config = RasterConfig(caps=caps_b)
+    stats_b = {}
+    _reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    p2f_b, _, _ = mesh.ortho_pix2face(resolution_m=ORTHO_BIG_RES_M, stats=stats_b)
+    big_s = time.perf_counter() - t0
+    for key, n in _launches().items():
+        launches[key] += n
+    tile_b, row_b = _ortho_kernel_vs_plain(plan_b, cfg_b)
+    h0, w0 = min(plan_b.tile_h, plan_b.height), min(plan_b.tile_w, plan_b.width)
+    if not np.array_equal(tile_b.cpu().numpy()[:h0, :w0], p2f_b[:h0, :w0]):
+        raise RuntimeError("the 10000 px ortho differs from its first tile's kernel run")
+    del tile_b
+    big_shape = list(p2f_b.shape)
+    big_coverage = float((p2f_b >= 0).mean())
+    del p2f_b
+    _line("9b", shape=list(p2f.shape), res_m=ORTHO_RES_M, census=census, caps=list(caps),
+          overflow=0, ortho_s=round(ortho_s, 4),
+          raster_s=round(stats["raster_s"], 4), download_s=round(stats["download_s"], 4),
+          coverage=coverage, faces_seen=faces_seen, px_per_face=round(
+              float((p2f >= 0).sum()) / max(faces_seen, 1), 3),
+          kernel=row, oracle=oracle,
+          tiled=dict(tiles=len(plan_t.tiles), tile=[plan_t.tile_h, plan_t.tile_w],
+                     caps=list(caps_t), tiles_equal_plain=len(plan_t.tiles),
+                     oracle=oracle_t, agree_untiled=agree_t,
+                     face_vs_background_untiled=bg_t),
+          big=dict(shape=big_shape, tiles=len(plan_b.tiles),
+                   tile=[plan_b.tile_h, plan_b.tile_w], census=census_b, caps=list(caps_b),
+                   overflow=0, seconds=round(big_s, 4),
+                   raster_s=round(stats_b["raster_s"], 4),
+                   download_s=round(stats_b["download_s"], 4), coverage=big_coverage,
+                   kernel=row_b),
+          launches=launches, card=card)
+    return cfg, row, row_b, launches
+
+
+def _polygon_phase(folder, survey, mesh, dtm, cfg, dev, card=None):
+    """Phase 9c: phase 8's six star polygons painted onto the mesh, the
+    raster vector export at ``ORTHO_RES_M``, and the ``label_polygons``
+    entry point without and with the DTM and in the exact mode: every
+    polygon that no other overlaps gets its own species back.  Returns the
+    launches."""
+    folder = Path(folder)
+    on = {} if dev.type == "cuda" else {"device": dev}  # the card: the default
+    ids, names = mesh.get_values_for_verts_from_vector(survey["labels_file"], "species")
+    mesh.set_texture(ids, is_vertex=True, IDs_to_labels=names)
+    face_labels = mesh.vert_to_face_texture()[:, 0]
+    mesh.raster_config = cfg
+    _reset_launches()
+    st = {}
+    _sync(dev)
+    t0 = time.perf_counter()
+    vd = mesh.export_face_labels_vector(face_labels, export_file=folder / "classes.geojson",
+                                        resolution_m=ORTHO_RES_M, mode="raster", stats=st)
+    export_s = time.perf_counter() - t0
+    launches = _launches()
+    painted = sorted(int(c) for c in np.unique(face_labels[np.isfinite(face_labels)]))
+    if sorted(set(vd.attributes["class_ID"])) != painted:
+        raise RuntimeError(f"raster export classes {sorted(set(vd.attributes['class_ID']))}"
+                           f", painted {painted}")
+    np.save(folder / "face_labels.npy", face_labels)
+    polys = VectorData.read_file(survey["labels_file"])
+    species = polys.attributes["species"]
+    alone = [i for i, a in enumerate(polys.geometries)
+             if all(polygon_intersection_area(a, b) == 0
+                    for j, b in enumerate(polys.geometries) if j != i)]
+    if not alone:
+        raise RuntimeError("every label polygon overlaps another: nothing to check")
+    runs = {}
+    for run, kw in (("raster", {}),
+                    ("raster_dtm", dict(DTM_file=dtm, height_above_ground_threshold=
+                                        HEIGHT_THRESHOLDS[0],
+                                        ground_voting_weight=GROUND_VOTING_WEIGHT)),
+                    ("exact", dict(mode="exact"))):
+        stats = {}
+        _reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        labels = label_polygons(
+            survey["mesh_file"], None, folder / "face_labels.npy", survey["labels_file"],
+            folder / f"labelled_{run}.geojson", transform_filename=survey["cameras_file"],
+            IDs_to_labels=names, raster_config=cfg, resolution_m=ORTHO_RES_M,
+            stats=stats, **on, **kw)
+        _sync(dev)
+        for key, n in _launches().items():
+            launches[key] += n
+        wrong = [i for i in alone if labels[i] != species[i]]
+        if wrong:
+            raise RuntimeError(f"label_polygons ({run}): polygons {wrong} that no other "
+                               f"overlaps labelled {[labels[i] for i in wrong]}, not "
+                               f"{[species[i] for i in wrong]}")
+        written = VectorData.read_file(folder / f"labelled_{run}.geojson")
+        if written.attributes["predicted_labels"] != labels:
+            raise RuntimeError(f"label_polygons ({run}) wrote other labels")
+        runs[run] = dict(seconds=round(time.perf_counter() - t0, 4), labels=labels,
+                         **{k: round(v, 4) for k, v in stats.items()
+                            if isinstance(v, float)})
+    _line("9c", polygons=len(polys), species=species, alone=alone,
+          painted_classes=painted, export_polygons=len(vd), export_s=round(export_s, 4),
+          export_stages_s={k: round(v, 4) for k, v in st.items() if isinstance(v, float)},
+          label_polygons=runs, launches=launches, card=card)
+    return launches
+
+
+def _phase9(folder, survey, verts, cfg, dev, card=None):
+    """Phase 9 on phase 8's survey on disk: 9a (DTM), 9b (ortho), 9c
+    (polygons).  Returns (the kernels' launches, the ortho kernel rows at
+    ~2500 px and on a ~5000 px tile)."""
+    t0 = time.perf_counter()
+    mesh, dtm, launches = _dtm_phase(folder, survey, verts, cfg, dev, card)
+    cfg_o, row, row_b, launches_b = _ortho_phase(mesh, dev, card)
+    launches_c = _polygon_phase(folder, survey, mesh, dtm, cfg_o, dev, card)
+    for more in (launches_b, launches_c):
+        for k, n in more.items():
+            launches[k] += n
+    _line("9", seconds=round(time.perf_counter() - t0, 3), launches=launches)
+    return launches, row, row_b
 
 
 if __name__ == "__main__":

@@ -9,6 +9,8 @@ _ENTRYPOINTS = {
     "render_labels": "render_labels",
     "project_detections": "project_detections",
     "multiview_detections": "multiview_detections",
+    "render_height_masks": "render_height_masks",
+    "label_polygons": "label_polygons",
 }
 
 __all__ = list(_ENTRYPOINTS)

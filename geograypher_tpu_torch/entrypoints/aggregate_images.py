@@ -9,8 +9,9 @@ each (``meshes/chunked.py``), when ``n_aggregation_clusters`` or
 a machine with more than one card, the survey pipeline over every card
 (``parallel/pipeline.py``); else ``TexturedMesh.aggregate_projected_images``
 on ``device`` (the planned route for large one-hot surveys).  The
-predicted classes export as exact per-class polygons.  The DTM ground
-relabel raises ``NotImplementedError`` naming its ROADMAP item.
+predicted classes export as exact per-class polygons.  With a DTM, faces
+whose vertices lie less than ``height_above_ground_threshold`` above it
+are relabelled to a ground class (``TexturedMesh.label_ground_class``).
 """
 
 from __future__ import annotations
@@ -74,11 +75,7 @@ def aggregate_images(
     overflows raises after the last view.  Returns (predicted_face_classes
     (F,), average_projections (F, C)).
     """
-    if DTM_file is not None:
-        raise NotImplementedError(
-            "the DTM ground relabel is not ported yet (ROADMAP A6)"
-        )
-    del height_above_ground_threshold, vis
+    del vis
     if isinstance(IDs_to_labels, str):
         with open(IDs_to_labels) as fh:
             IDs_to_labels = {int(k): v for k, v in json.load(fh).items()}
@@ -152,6 +149,19 @@ def aggregate_images(
     ).numpy()
     # faces never observed stay NaN
     predicted_face_classes[info["projection_counts"] == 0] = np.nan
+
+    if DTM_file is not None:
+        # faces -> vertices, near-ground vertices to the ground class (the
+        # next id after the named classes, NaN without names), back to faces
+        mesh.set_texture(predicted_face_classes, is_vertex=False)
+        mesh.set_texture(mesh.get_texture(request_vertex_texture=True),
+                         is_vertex=True)
+        mesh.label_ground_class(
+            DTM_file,
+            height_above_ground_threshold=height_above_ground_threshold,
+            ground_ID=np.nan if IDs_to_labels is None else len(IDs_to_labels),
+        )
+        predicted_face_classes = mesh.vert_to_face_texture()[:, 0]
 
     if predicted_face_classes_savefile is not None:
         ensure_containing_folder(predicted_face_classes_savefile)

@@ -8,8 +8,11 @@ crop mesh and cameras to the labeled region, render per-camera masks with
 occlusion-correct z-buffering on ``device`` and save them as PNG files
 named after the images; with ``n_cameras_per_chunk``, camera cluster by
 camera cluster, each from its own buffered sub-mesh
-(``meshes/chunked.py``).  The DTM ground relabel, composites and ``vis``
-raise ``NotImplementedError`` naming their ROADMAP items.
+(``meshes/chunked.py``).  With a DTM, labelled vertices less than
+``ground_height_threshold`` above it are relabelled to a ground class
+(rendered with ``render_ground_class``, else left unlabelled).
+Composites and ``vis`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -67,15 +70,10 @@ def render_labels(
     view that overflows them raises after the last view, and larger
     ``caps`` are the remedy.  Returns (mesh, camera_set).
     """
-    if DTM_file is not None and ground_height_threshold is not None:
-        raise NotImplementedError(
-            "the DTM ground relabel is not ported yet (ROADMAP A6)"
-        )
     if make_composites or vis:
         raise NotImplementedError(
             "composites and the viewer are not ported yet (ROADMAP A9)"
         )
-    del render_ground_class  # only read with a DTM
     camera_set = MetashapeCameraSet(
         cameras_file,
         image_folder,
@@ -116,6 +114,14 @@ def render_labels(
         raster_config=raster_config or DEFAULT_RASTER_CONFIG,
         device=device,
     )
+
+    if DTM_file is not None and ground_height_threshold is not None:
+        mesh.label_ground_class(
+            DTM_file,
+            height_above_ground_threshold=ground_height_threshold,
+            ground_ID=None if render_ground_class else np.nan,
+            only_label_existing=True,
+        )
 
     if textured_mesh_savefile is not None:
         mesh.save_mesh(textured_mesh_savefile)

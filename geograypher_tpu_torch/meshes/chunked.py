@@ -160,14 +160,8 @@ def label_polygons_chunked(
     **kwargs,
 ):
     """Polygon labelling one spatial cluster of polygons (KMeans of their
-    centroids) at a time against the mesh.  Needs
-    ``TexturedMesh.label_polygons``, which is not ported yet (ROADMAP
-    A6): until then it raises ``NotImplementedError``."""
-    if not hasattr(mesh, "label_polygons"):
-        raise NotImplementedError(
-            "polygon labelling is not ported yet (ROADMAP A6): "
-            "TexturedMesh.label_polygons is missing"
-        )
+    centroids) at a time against the mesh (``TexturedMesh.label_polygons``
+    with ``kwargs``); the labels in the polygons' order."""
     n = len(polygons)
     n_clusters = max(n // polygons_per_cluster, 1)
     cents = np.array([g.centroid for g in polygons.geometries])

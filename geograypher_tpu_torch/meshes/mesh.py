@@ -19,9 +19,12 @@ The detection workflow's pieces live here too: the exact per-class
 vector export and the covering meshes that clip detection rays; sparse
 per-face instance counts are in ``meshes/sparse.py``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): raster (GeoTIFF) textures, the DTM ground relabel, the raster mode
-of the vector export and polygon labeling (A6).
+The DTM workflows sample a GeoTIFF per vertex on the host
+(``utils/raster.py``): height above ground, the ground-class relabel and
+raster textures.  The orthographic products (``ortho_pix2face``, the
+raster mode of the vector export, polygon labelling) render a nadir
+camera far above the footprint through the same raster chain, tiled past
+``max_pixels``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import logging
+import time
 import typing
 from pathlib import Path
 
@@ -57,9 +61,13 @@ from geograypher_tpu_torch.ops.onehot import onehot_to_class
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
     bin_all,
+    bin_triangles,
     fused_view_class_counts,
     rasterize_setup,
+    rasterize_triangles,
     setup_from_soa,
+    setup_triangles,
+    transform_to_camera,
     tri_to_soa,
 )
 from geograypher_tpu_torch.parallel import planner as _planner
@@ -79,11 +87,35 @@ from geograypher_tpu_torch.utils.vector import (
     Polygon,
     VectorData,
     points_near_polygons,
+    polygons_from_mask,
+    rasterize_polygons,
 )
 
 logger = logging.getLogger(__name__)
 
 DEFAULT_RASTER_CONFIG = RasterConfig(caps=(512, 128, 64, 64))
+
+
+@dataclasses.dataclass
+class OrthoPlan:
+    """The cameras of an orthographic render (``TexturedMesh.ortho_plan``).
+
+    ``tri`` (F, 3, 3) float32 triangles centred on the footprint, on the
+    mesh's device; ``tiles`` one (first row, first column, world-to-camera
+    4x4 float32 tensor) a tile, every tile ``tile_h`` x ``tile_w`` px seen
+    at focal length ``focal``; the whole image ``height`` x ``width`` px
+    over ``bounds`` (x0, y0, x1, y1) in ``epsg``, pixel (0, 0) top-left.
+    """
+
+    tri: torch.Tensor
+    tiles: list
+    focal: float
+    tile_w: int
+    tile_h: int
+    width: int
+    height: int
+    bounds: tuple
+    epsg: typing.Optional[int]
 
 
 def _check_batch_size(batch_size: int) -> None:
@@ -545,7 +577,7 @@ class TexturedMesh:
         texture_column_name: typing.Optional[str] = None,
     ):
         """Texture loading chain: array -> named mesh scalar -> .npy ->
-        vector file.  Raster files are not ported yet."""
+        vector file -> raster (GeoTIFF) file, sampled at each vertex."""
         if isinstance(texture, np.ndarray):
             self.set_texture(texture)
             return
@@ -564,7 +596,8 @@ class TexturedMesh:
             )
             self.set_texture(labels, is_vertex=True, IDs_to_labels=ids_to_labels)
         elif suffix in (".tif", ".tiff"):
-            self.get_values_for_verts_from_raster(path)
+            self.set_texture(self.get_values_for_verts_from_raster(path),
+                             is_vertex=True)
         else:
             raise ValueError(f"Cannot load texture from {path}")
 
@@ -638,18 +671,126 @@ class TexturedMesh:
         ids = np.where(poly_idx >= 0, poly_idx.astype(float), np.nan)
         return ids, {i: i for i in range(len(vector))}
 
-    def get_values_for_verts_from_raster(self, raster_file: PATH_TYPE,
-                                         method: str = "nearest"):
-        raise NotImplementedError(
-            "raster (GeoTIFF) textures are not ported yet (ROADMAP A6): the "
-            f"port has no GeoTIFF reader of its own to sample {raster_file}"
+    def get_values_for_verts_from_raster(
+        self, raster_file: PATH_TYPE, method: str = "nearest"
+    ) -> np.ndarray:
+        """Sample a georeferenced raster at each vertex (reference
+        meshes.py:1425-1472), in the raster's CRS (the mesh's when the
+        raster has none); NaN outside it and on nodata."""
+        from geograypher_tpu_torch.utils.raster import read_geotiff
+
+        raster = read_geotiff(raster_file)
+        epsg = raster.epsg if raster.epsg is not None else self.CRS
+        verts = self.get_vertices_in_CRS(epsg)
+        if epsg == LAT_LON_EPSG:
+            xs, ys = verts[:, 1], verts[:, 0]  # lon, lat
+        else:
+            xs, ys = verts[:, 0], verts[:, 1]
+        return raster.sample(xs, ys, method=method)
+
+    def get_height_above_ground(
+        self, DTM_file: PATH_TYPE, threshold: typing.Optional[float] = None
+    ) -> np.ndarray:
+        """Per-vertex height above a digital terrain model (reference
+        meshes.py:1474-1502): the vertex's ellipsoidal altitude less the
+        DTM's height under it; with ``threshold`` the bool mask of the
+        vertices lower than it."""
+        dtm_heights = self.get_values_for_verts_from_raster(DTM_file)
+        if dtm_heights.ndim > 1:
+            dtm_heights = dtm_heights[..., 0]
+        vert_alt = crs_utils.transform_points(
+            self.verts, self.CRS, LAT_LON_EPSG
+        )[:, 2]
+        hag = vert_alt - dtm_heights
+        if threshold is not None:
+            return hag < threshold
+        return hag
+
+    def label_ground_class(
+        self,
+        DTM_file: PATH_TYPE,
+        height_above_ground_threshold: float = 2.0,
+        labels: typing.Optional[np.ndarray] = None,
+        only_label_existing_labels: typing.Optional[bool] = None,
+        ground_class_name: str = "ground",
+        ground_ID: typing.Optional[int] = None,
+        set_mesh_texture: bool = True,
+        only_label_existing: typing.Optional[bool] = None,
+    ):
+        """Relabel near-ground vertices (or faces) to the ground class
+        (reference meshes.py:1504-1596).
+
+        ``labels`` may be a vertex- or face-aligned array to relabel;
+        when omitted the mesh's vertex texture is used (and
+        ``set_mesh_texture`` installs the result).  A face is ground when
+        at least half of its vertices are.  ``only_label_existing`` is an
+        alias of ``only_label_existing_labels``.  Returns ``(labels,
+        ground_ID)``.
+        """
+        if only_label_existing_labels is None:
+            only_label_existing_labels = (
+                True if only_label_existing is None else only_label_existing
+            )
+        use_vertex = True
+        if labels is not None:
+            labels = np.asarray(labels, dtype=np.float64)
+            if labels.ndim == 1:
+                labels = labels[:, None]
+            if labels.shape[0] == self.n_verts:
+                use_vertex = True
+            elif labels.shape[0] == self.n_faces:
+                use_vertex = False
+            else:
+                raise ValueError(
+                    "labels match neither the vertex nor the face count"
+                )
+            labels = labels.copy()
+        else:
+            tex = self.get_texture(request_vertex_texture=True)
+            labels = (
+                np.full((self.n_verts, 1), np.nan) if tex is None
+                else tex.copy()
+            )
+        ground = self.get_height_above_ground(
+            DTM_file, threshold=height_above_ground_threshold
+        )
+        if not use_vertex:
+            # majority vote of the face's vertices
+            ground = ground[self.faces].mean(axis=1) >= 0.5
+        mask = ground.copy()
+        if only_label_existing_labels:
+            mask &= np.isfinite(labels[:, 0])
+        if ground_ID is None:
+            ids = self.IDs_to_labels or {}
+            labels_to_ids = {v: k for k, v in ids.items()}
+            if ground_class_name in labels_to_ids:
+                ground_ID = labels_to_ids[ground_class_name]
+            else:
+                finite = labels[np.isfinite(labels)]
+                ground_ID = int(finite.max()) + 1 if finite.size else 0
+        labels[mask, 0] = ground_ID
+        if set_mesh_texture and use_vertex:
+            ids = dict(self.IDs_to_labels or {})
+            if np.isfinite(ground_ID):
+                ids[ground_ID] = ground_class_name
+            self.set_texture(labels, is_vertex=True, IDs_to_labels=ids)
+        return labels, ground_ID
+
+    def get_face_area_ratios(self) -> np.ndarray:
+        """Per-face (2D z-projected area) / (3D area) in the working
+        projected CRS: ~1 for flat ground, ->0 for steep faces (reference
+        meshes.py:881-911); 0 for degenerate faces."""
+        from geograypher_tpu_torch.utils.numeric import (
+            compute_3D_triangle_area_vectorized,
         )
 
-    def label_ground_class(self, DTM_file: PATH_TYPE, *args, **kwargs):
-        raise NotImplementedError(
-            "the DTM ground relabel is not ported yet (ROADMAP A6): it "
-            "samples a GeoTIFF, which the port cannot read yet"
-        )
+        crs = self.get_working_projected_CRS() if self.CRS is not None else None
+        verts = self.get_vertices_in_CRS(crs) if crs else self.verts
+        corners = verts[self.faces].transpose(1, 0, 2)  # (3, F, 3)
+        area3d, area2d = compute_3D_triangle_area_vectorized(corners)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ratio = area2d / area3d
+        return np.nan_to_num(ratio, nan=0.0)
 
     # -- rasterization / aggregation ----------------------------------------
 
@@ -1346,7 +1487,163 @@ class TexturedMesh:
                 "Pass a RasterConfig with larger caps."
             )
 
-    # -- vector export and covering meshes ------------------------------------
+    # -- orthographic raster, vector export, polygon labelling -----------------
+
+    def ortho_plan(
+        self,
+        crs: typing.Optional[int] = None,
+        resolution_m: float = 0.2,
+        max_pixels: int = 8192,
+        max_total_pixels: int = 2 ** 28,
+    ) -> "OrthoPlan":
+        """The cameras of :meth:`ortho_pix2face`: the footprint's pixel
+        grid at ``resolution_m`` (clamped, with a warning, past
+        ``max_total_pixels``) and one nadir camera a tile, the footprint
+        cut into equal tiles of at most ``max_pixels`` a side.  The
+        triangles, centred on the footprint, go to the mesh's device."""
+        if crs is None and self.CRS is not None:
+            crs = self.get_working_projected_CRS()
+        verts = self.get_vertices_in_CRS(crs)
+        x0, y0 = verts[:, 0].min(), verts[:, 1].min()
+        x1, y1 = verts[:, 0].max(), verts[:, 1].max()
+        zmax = verts[:, 2].max()
+        span_x = max(x1 - x0, resolution_m)
+        span_y = max(y1 - y0, resolution_m)
+        # one ground resolution for both axes: the camera has one focal
+        # length, so the rendered pixel is square
+        res = resolution_m
+        if (span_x / res) * (span_y / res) > max_total_pixels:
+            res = res * np.sqrt((span_x / res) * (span_y / res) / max_total_pixels)
+            logger.warning(
+                "ortho_pix2face: %.3g m/px over this footprint needs %.2g "
+                "pixels (> max_total_pixels=%d); EFFECTIVE RESOLUTION "
+                "DEGRADED to %.3g m/px -- raise max_total_pixels to keep "
+                "the requested resolution",
+                resolution_m, (span_x / resolution_m) * (span_y / resolution_m),
+                max_total_pixels, res,
+            )
+        w = max(int(np.ceil(span_x / res)), 1)
+        h = max(int(np.ceil(span_y / res)), 1)
+        cx, cy = (x0 + x1) / 2.0, (y0 + y1) / 2.0
+        depth_range = zmax - verts[:, 2].min()
+        x_left = cx - w * res / 2.0
+        y_top = cy + h * res / 2.0
+        if w <= max_pixels and h <= max_pixels:
+            tw, th, origins = w, h, [(0, 0, 0.0, 0.0)]
+        else:
+            tiles_x, tiles_y = -(-w // max_pixels), -(-h // max_pixels)
+            tw, th = -(-w // tiles_x), -(-h // tiles_y)
+            logger.info(
+                "ortho_pix2face: tiling %dx%d px footprint into %dx%d "
+                "tiles of %dx%d at the full %.3g m/px",
+                w, h, tiles_x, tiles_y, tw, th, res,
+            )
+            origins = [
+                (ti * th, tj * tw,
+                 (x_left + (tj * tw + tw / 2.0) * res) - cx,
+                 (y_top - (ti * th + th / 2.0) * res) - cy)
+                for ti in range(tiles_y) for tj in range(tiles_x)
+            ]
+        # a nadir camera far above the (sub-)scene: distance D, f = D / res
+        dist = max(tw * res, th * res, depth_range, 1e-6) * 40.0
+        tiles = []
+        for i0, j0, dx, dy in origins:
+            c2w = np.array([
+                [1.0, 0.0, 0.0, dx],
+                [0.0, -1.0, 0.0, dy],
+                [0.0, 0.0, -1.0, zmax + dist],
+                [0.0, 0.0, 0.0, 1.0],
+            ])
+            tiles.append((i0, j0, torch.as_tensor(
+                np.linalg.inv(c2w), dtype=torch.float32, device=self.device)))
+        tri = torch.as_tensor(verts[self.faces] - np.array([[cx, cy, 0.0]]),
+                              dtype=torch.float32, device=self.device)
+        bounds = (x_left, cy - h * res / 2.0, cx + w * res / 2.0, y_top)
+        return OrthoPlan(tri=tri, tiles=tiles, focal=float(np.float32(dist / res)),
+                         tile_w=tw, tile_h=th, width=w, height=h,
+                         bounds=bounds, epsg=crs)
+
+    def ortho_raster_census(
+        self,
+        plan: "OrthoPlan",
+        config: typing.Optional[RasterConfig] = None,
+    ) -> typing.List[int]:
+        """Per-level maximum tile-list demand over the tiles of ``plan``
+        (``bin_triangles`` census): caps at or above it drop nothing."""
+        config = config or self.raster_config
+        census = [
+            bin_triangles(
+                setup_triangles(transform_to_camera(plan.tri, w2c), plan.focal,
+                                plan.tile_w, plan.tile_h, config.znear),
+                config, plan.tile_h, plan.tile_w, return_census=True)
+            for _, _, w2c in plan.tiles
+        ]
+        return torch.stack(census).amax(0).tolist()
+
+    def ortho_pix2face(
+        self,
+        crs: typing.Optional[int] = None,
+        resolution_m: float = 0.2,
+        max_pixels: int = 8192,
+        max_total_pixels: int = 2 ** 28,
+        stats: typing.Optional[dict] = None,
+    ):
+        """Orthographic top-down pix2face over the mesh footprint.
+
+        The building block for vector export and polygon labeling: an
+        orthographic view is a pinhole camera at a great distance with a
+        long focal length (see :meth:`ortho_plan`).  Footprints needing
+        more than ``max_pixels`` per axis are rendered as a grid of tiles
+        of one shape at the full resolution (the camera translates per
+        tile; edge tiles crop the paste); only past ``max_total_pixels``
+        is the resolution clamped, with a warning.  Tiles run on the
+        mesh's device through the raster chain at the mesh's
+        ``raster_config`` and are pasted into one host array.  Every
+        tile's overflow is read once after the last: any dropped candidate
+        raises, naming the tiles and the caps (:meth:`ortho_plan` and
+        :meth:`ortho_raster_census` size caps that hold).  ``stats`` (a
+        dict) receives ``raster_s`` and ``download_s``.
+
+        Returns (pix2face (H, W) int32, bounds (x0, y0, x1, y1), epsg).
+        """
+        config = self.raster_config
+        plan = self.ortho_plan(crs, resolution_m, max_pixels, max_total_pixels)
+        p2f = np.full((plan.height, plan.width), -1, np.int32)
+        overflows, raster_s, download_s = [], 0.0, 0.0
+        for i0, j0, w2c in plan.tiles:
+            t0 = time.perf_counter()
+            tile, overflow = rasterize_triangles(
+                transform_to_camera(plan.tri, w2c), plan.focal, plan.tile_w,
+                plan.tile_h, config, return_overflow=True)
+            overflows.append(overflow)
+            if tile.device.type == "cuda":
+                torch.cuda.synchronize(tile.device)
+            t1 = time.perf_counter()
+            h_eff = min(plan.tile_h, plan.height - i0)
+            w_eff = min(plan.tile_w, plan.width - j0)
+            p2f[i0:i0 + h_eff, j0:j0 + w_eff] = tile[:h_eff, :w_eff].cpu().numpy()
+            raster_s += t1 - t0
+            download_s += time.perf_counter() - t1
+        dropped = torch.stack(overflows).cpu().tolist()
+        over = [(plan.tiles[k][0], plan.tiles[k][1], int(n))
+                for k, n in enumerate(dropped) if n]
+        if over:
+            raise RuntimeError(
+                f"ortho_pix2face: raster capacity overflow in tiles (row, column, "
+                f"dropped) {over} of {plan.tile_h}x{plan.tile_w} px at caps "
+                f"{tuple(config.caps)}: the pix2face is incomplete. Give the mesh a "
+                "raster_config with larger caps (ortho_raster_census sizes them)."
+            )
+        if stats is not None:
+            stats.update(raster_s=raster_s, download_s=download_s,
+                         tiles=len(plan.tiles))
+        return p2f, plan.bounds, plan.epsg
+
+    @staticmethod
+    def _label_image(p2f: np.ndarray, face_values: np.ndarray) -> np.ndarray:
+        """Per-pixel value of the face a pixel sees, NaN on background."""
+        with np.errstate(invalid="ignore"):
+            return np.where(p2f >= 0, face_values[np.clip(p2f, 0, None)], np.nan)
 
     def export_face_labels_vector(
         self,
@@ -1355,45 +1652,182 @@ class TexturedMesh:
         label_names: typing.Optional[dict] = None,
         resolution_m: float = 0.2,
         mode: str = "exact",
+        stats: typing.Optional[dict] = None,
     ) -> VectorData:
         """Per-face labels -> geospatial polygons (reference
-        meshes.py:1284-1423), ``mode="exact"``: class regions derived
-        combinatorially from shared mesh edges
-        (:func:`~geograypher_tpu_torch.utils.exact_geometry.class_region_polygons`),
-        every output vertex an exact mesh vertex.  Columns ``class_ID``
-        and ``names``; the working UTM CRS when georeferenced.
-        ``mode="raster"`` (an orthographic render at ``resolution_m``)
-        raises ``NotImplementedError``: it needs ``ortho_pix2face``
-        (ROADMAP A6).
-        """
-        if mode != "exact":
-            raise NotImplementedError(
-                f"export_face_labels_vector(mode={mode!r}) is not ported yet "
-                "(ROADMAP A6): it needs ortho_pix2face; mode='exact' is"
-            )
-        from geograypher_tpu_torch.utils.exact_geometry import class_region_polygons
+        meshes.py:1284-1423), columns ``class_ID`` and ``names``, in the
+        working UTM CRS when georeferenced.
 
+        ``mode="exact"`` (default): class regions derived combinatorially
+        from shared mesh edges
+        (:func:`~geograypher_tpu_torch.utils.exact_geometry.class_region_polygons`),
+        every output vertex an exact mesh vertex.  ``mode="raster"``: the
+        faces rendered orthographically at ``resolution_m``
+        (:meth:`ortho_pix2face`) and each class mask traced
+        (``polygons_from_mask``), for meshes whose top-down projection
+        overlaps itself.  ``stats`` (a dict) receives the raster mode's
+        ``ortho_s``, ``contours_s`` and ``write_s``.
+        """
         if face_labels is None:
             face_labels = self.get_texture(request_vertex_texture=False)
         face_labels = np.asarray(face_labels).reshape(-1)
-        crs = self.get_working_projected_CRS() if self.CRS is not None else None
-        verts2d = self.get_vertices_in_CRS(crs)[:, :2]
-        regions = class_region_polygons(verts2d, self.faces, face_labels)
         label_names = label_names or self.IDs_to_labels or {}
         geoms, names, ids = [], [], []
-        for c in sorted(regions):
-            for poly in regions[c]:
-                geoms.append(poly)
-                ids.append(int(c))
-                names.append(label_names.get(int(c), int(c)))
+        t0 = time.perf_counter()
+        if mode == "exact":
+            from geograypher_tpu_torch.utils.exact_geometry import class_region_polygons
+
+            crs = self.get_working_projected_CRS() if self.CRS is not None else None
+            verts2d = self.get_vertices_in_CRS(crs)[:, :2]
+            regions = class_region_polygons(verts2d, self.faces, face_labels)
+            for c in sorted(regions):
+                for poly in regions[c]:
+                    geoms.append(poly)
+                    ids.append(int(c))
+                    names.append(label_names.get(int(c), int(c)))
+        elif mode == "raster":
+            p2f, bounds, crs = self.ortho_pix2face(resolution_m=resolution_m,
+                                                   stats=stats)
+            t1 = time.perf_counter()
+            label_img = self._label_image(p2f, face_labels)
+            for c in np.unique(label_img[np.isfinite(label_img)]).astype(int):
+                for poly in polygons_from_mask(label_img == c, bounds):
+                    geoms.append(poly)
+                    ids.append(int(c))
+                    names.append(label_names.get(int(c), int(c)))
+            if stats is not None:
+                stats.update(ortho_s=t1 - t0, contours_s=time.perf_counter() - t1)
+        else:
+            raise ValueError(f"unknown mode {mode!r}: 'exact' or 'raster'")
         out = VectorData(
             geoms,
             {"class_ID": ids, "names": [str(n) for n in names]},
             epsg=crs,
         )
         if export_file is not None:
+            t2 = time.perf_counter()
             out.to_file(export_file)
+            if stats is not None:
+                stats["write_s"] = time.perf_counter() - t2
         return out
+
+    def label_polygons(
+        self,
+        face_labels: np.ndarray,
+        polygons: typing.Union[PATH_TYPE, VectorData],
+        face_weighting: typing.Optional[np.ndarray] = None,
+        sjoin_overlay: bool = True,  # accepted for API parity; unused
+        return_class_labels: bool = True,
+        unknown_class_label: str = "unknown",
+        resolution_m: float = 0.2,
+        mode: str = "raster",
+        stats: typing.Optional[dict] = None,
+    ) -> list:
+        """Assign each polygon the area-weighted dominant face class
+        (reference meshes.py:1117-1282).
+
+        ``mode="raster"`` (default) rasterizes both layers onto a common
+        ortho grid (:meth:`ortho_pix2face` and ``rasterize_polygons``);
+        the joint (polygon, class) histogram, weighted by
+        ``face_weighting``, gives the area weighting at ``resolution_m``.
+        ``mode="exact"`` computes true triangle-polygon intersection
+        areas by convex clipping (``utils/exact_geometry.py``).  Negative
+        and NaN labels do not vote; a polygon with no vote gets
+        ``unknown_class_label`` (NaN without class labels).  ``stats`` (a
+        dict) receives the raster mode's ``ortho_s``, ``polygons_s`` and
+        ``histogram_s``.
+        """
+        if not isinstance(polygons, VectorData):
+            polygons = VectorData.read_file(polygons)
+        face_labels = np.asarray(face_labels).reshape(-1)
+        if mode == "exact":
+            return self._label_polygons_exact(
+                face_labels, polygons, face_weighting,
+                return_class_labels, unknown_class_label,
+            )
+        t0 = time.perf_counter()
+        p2f, bounds, crs = self.ortho_pix2face(resolution_m=resolution_m,
+                                               stats=stats)
+        t1 = time.perf_counter()
+        if polygons.epsg is not None and crs is not None:
+            polygons = polygons.to_crs(crs)
+        poly_img = rasterize_polygons(
+            list(polygons.geometries), list(range(len(polygons))), bounds, p2f.shape)
+        t2 = time.perf_counter()
+        label_img = self._label_image(p2f, face_labels)
+        weight_img = None
+        if face_weighting is not None:
+            face_weighting = np.asarray(face_weighting).reshape(-1)
+            weight_img = np.where(
+                p2f >= 0, face_weighting[np.clip(p2f, 0, None)], 0.0)
+        # negative labels (e.g. -1 unlabeled sentinel) are ignored, as in
+        # the exact mode
+        valid = (poly_img >= 0) & np.isfinite(label_img) & (label_img >= 0)
+        n_classes = (
+            int(np.nanmax(face_labels)) + 1
+            if np.isfinite(face_labels).any() and np.nanmax(face_labels) >= 0
+            else 1
+        )
+        flat_idx = (poly_img[valid].astype(np.int64) * n_classes
+                    + label_img[valid].astype(np.int64))
+        weights = weight_img[valid] if weight_img is not None else None
+        hist = np.bincount(
+            flat_idx, weights=weights, minlength=len(polygons) * n_classes
+        ).reshape(len(polygons), n_classes)
+        best = np.argmax(hist, axis=1).astype(float)
+        best[hist.sum(axis=1) == 0] = np.nan
+        if stats is not None:
+            stats.update(ortho_s=t1 - t0, polygons_s=t2 - t1,
+                         histogram_s=time.perf_counter() - t2)
+        return self._named_labels(best, return_class_labels, unknown_class_label)
+
+    def _named_labels(self, best, return_class_labels, unknown_class_label):
+        if return_class_labels:
+            ids_to_labels = self.IDs_to_labels or {}
+            return [
+                unknown_class_label if np.isnan(b) else ids_to_labels.get(int(b), int(b))
+                for b in best
+            ]
+        return best.tolist()
+
+    def _label_polygons_exact(
+        self,
+        face_labels: np.ndarray,
+        polygons: VectorData,
+        face_weighting: typing.Optional[np.ndarray],
+        return_class_labels: bool,
+        unknown_class_label: str,
+    ) -> list:
+        """Exact-area polygon labeling via convex clipping (see
+        label_polygons mode="exact")."""
+        from geograypher_tpu_torch.utils.exact_geometry import polygon_overlay_areas
+
+        crs = self.get_working_projected_CRS() if self.CRS is not None else None
+        if polygons.epsg is not None and crs is not None:
+            polygons = polygons.to_crs(crs)
+        verts2d = self.get_vertices_in_CRS(crs)[:, :2]
+        tris = verts2d[self.faces]
+        finite = np.isfinite(face_labels) & (face_labels >= 0)
+        n_classes = int(face_labels[finite].max()) + 1 if finite.any() else 1
+        weighting = (
+            np.asarray(face_weighting).reshape(-1)
+            if face_weighting is not None
+            else np.ones(len(face_labels))
+        )
+        best = np.full(len(polygons), np.nan)
+        for pi, poly in enumerate(polygons.geometries):
+            areas = polygon_overlay_areas(tris, poly)
+            sel = (areas > 0) & finite
+            if not sel.any():
+                continue
+            hist = np.bincount(
+                face_labels[sel].astype(np.int64),
+                weights=areas[sel] * weighting[sel],
+                minlength=n_classes,
+            )
+            if hist.sum() > 0:
+                best[pi] = float(np.argmax(hist))
+        return self._named_labels(best, return_class_labels, unknown_class_label)
 
     def export_covering_meshes(
         self,

@@ -561,9 +561,14 @@ def rasterize_triangles(
     image_w: int,
     image_h: int,
     config: RasterConfig = RasterConfig(),
-) -> torch.Tensor:
+    return_overflow: bool = False,
+):
     """One view's (image_h, image_w) int32 pix2face from camera-frame
-    (F, 3, 3) triangles; -1 for background."""
+    (F, 3, 3) triangles; -1 for background.  With ``return_overflow``
+    also the candidates the tile lists dropped, a () tensor on the device
+    (nonzero = the pix2face is incomplete): a caller that does not ask
+    for it gets a map whose drops it cannot see, so every caller in the
+    port asks and raises."""
     setup = setup_triangles(tri_verts_cam, f, image_w, image_h, config.znear)
-    pix2face, _ = rasterize_setup(setup, config, image_h, image_w)
-    return pix2face
+    pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
+    return (pix2face, binned.overflow) if return_overflow else pix2face

@@ -136,7 +136,9 @@ def sharded_render_aggregate(
             tensor a device (:func:`shard_views_for_mesh`).
 
     Returns ``(value_sum (F, C), view_count (F,))`` on the first device:
-    the summed per-view means and the views that saw each face.
+    the summed per-view means and the views that saw each face.  Raises
+    after the last view, naming each (device, view) whose tile lists
+    dropped candidates, when any did: the overflow is read once.
     """
     if not (len(world_to_cam) == len(focals) == len(view_valid) == len(mesh)):
         raise ValueError(f"{len(world_to_cam)} view shards for {len(mesh)} devices")
@@ -146,16 +148,29 @@ def sharded_render_aggregate(
            for dev in set(mesh)}
     n_channels = tex[mesh[0]].shape[1]
     states = [init_aggregation(n_faces, n_channels, dev) for dev in mesh]
+    overflows = []  # (device, view, dropped candidates on the device)
     for k in range(max(len(f) for f in focals)):
         for d, dev in enumerate(mesh):
             if k >= len(focals[d]):
                 continue
             cam_tris = transform_to_camera(tri[dev], world_to_cam[d][k])
-            p2f = rasterize_triangles(cam_tris, focals[d][k], image_w, image_h,
-                                      config)
+            p2f, overflow = rasterize_triangles(
+                cam_tris, focals[d][k], image_w, image_h, config,
+                return_overflow=True)
+            valid = view_valid[d][k]
+            # a padding view's drops do not reach the aggregate
+            overflows.append((d, k, overflow * (valid != 0)))
             sums, counts = project_image_to_faces(
                 p2f, render_texture(p2f, tex[dev]), n_faces)
-            valid = view_valid[d][k]
             states[d] = accumulate_view(states[d], sums * valid, counts * valid)
+    # one read of every view's overflow, after the last launch
+    dropped = torch.stack([o.to(mesh[0]) for _, _, o in overflows]).cpu().tolist()
+    over = [(d, k, int(n)) for (d, k, _), n in zip(overflows, dropped) if n]
+    if over:
+        raise RuntimeError(
+            f"raster capacity overflow in views (device, view, dropped) {over}: "
+            f"their tile lists at caps {tuple(config.caps)} dropped candidates, "
+            "so the aggregate is incomplete. Pass a RasterConfig with larger caps."
+        )
     return (sum_over_devices([s.value_sum for s in states]),
             sum_over_devices([s.view_count for s in states]))

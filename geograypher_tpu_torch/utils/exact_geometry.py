@@ -1,6 +1,5 @@
-"""Exact per-class region polygons from mesh combinatorics: the port's
-own copy of the class-region part of ``geograypher_tpu/utils/exact_geometry.py``
-(numpy only).
+"""Exact 2D vector geometry on mesh faces: the port's own copy of
+``geograypher_tpu/utils/exact_geometry.py`` (numpy only).
 
 The reference unions millions of face triangles with GEOS for its
 per-class vector export (reference utils/geometric.py:13-96
@@ -10,9 +9,13 @@ half-edges whose twin belongs to a different class (or to no face);
 chaining those half-edges yields the region rings with vertices exactly
 at mesh vertex coordinates, with no floating-point clipping.
 
-Not carried over yet: the triangle-vs-polygon overlay areas
+Triangle-vs-polygon intersection areas reduce to convex clipping:
+ear-clipping the polygon into triangles turns every term into a
+triangle-triangle area, a 3-half-plane Sutherland-Hodgman clip of a
+convex subject, vectorized over all candidate mesh faces at once
 (``ear_clip``, ``clip_areas_convex``, ``polygon_overlay_areas``,
-``polygon_intersection_area``) that polygon labeling needs (ROADMAP A6).
+``polygon_intersection_area``); holes subtract.  Polygon labeling's exact
+mode and the exact vector-vs-vector overlap are built on them.
 """
 
 from __future__ import annotations
@@ -216,3 +219,203 @@ def class_region_polygons(
                 polys[best].holes.append(hring)
         out[int(c)] = polys
     return out
+
+
+# ---------------------------------------------------------------------------
+# exact triangle-vs-polygon intersection areas (convex clipping)
+# ---------------------------------------------------------------------------
+
+
+def ear_clip(ring: np.ndarray) -> np.ndarray:
+    """Simple-polygon ring (K, 2) -> (K-2, 3, 2) triangle fan partition.
+
+    Textbook ear clipping, O(K^2); label polygons are boundary-scale
+    (tens to hundreds of vertices).  Accepts either winding.
+    """
+    ring = np.asarray(ring, np.float64)
+    if _ring_area(ring) < 0:
+        ring = ring[::-1]
+    idx = list(range(ring.shape[0]))
+    tris = []
+    guard = 0
+    while len(idx) > 3 and guard < ring.shape[0] ** 2 + 8:
+        guard += 1
+        n = len(idx)
+        for k in range(n):
+            i0, i1, i2 = idx[k - 1], idx[k], idx[(k + 1) % n]
+            a, b, c = ring[i0], ring[i1], ring[i2]
+            cross = (b[0] - a[0]) * (c[1] - a[1]) - (c[0] - a[0]) * (
+                b[1] - a[1]
+            )
+            if cross <= 0:
+                continue  # reflex corner
+            others = np.array(
+                [j for j in idx if j not in (i0, i1, i2)], np.int64
+            )
+            if others.size:
+                tri = np.stack([a, b, c])
+                inside = _points_in_ring(ring[others], tri)
+                if inside.any():
+                    continue
+            tris.append(np.stack([a, b, c]))
+            idx.pop(k)
+            break
+        else:
+            # numerically degenerate remainder: emit a fan and stop
+            break
+    if len(idx) >= 3:
+        for k in range(1, len(idx) - 1):
+            tris.append(
+                np.stack([ring[idx[0]], ring[idx[k]], ring[idx[k + 1]]])
+            )
+    return (
+        np.stack(tris)
+        if tris
+        else np.zeros((0, 3, 2), np.float64)
+    )
+
+
+def clip_areas_convex(subject: np.ndarray, clip_tri: np.ndarray):
+    """Areas of (N, 3, 2) subject triangles clipped by ONE triangle.
+
+    Vectorized Sutherland–Hodgman against the clip triangle's three
+    half-planes (subject∩clip has at most 6 vertices; buffers are padded
+    to 8).  Returns (N,) float64 areas.
+    """
+    subject = np.asarray(subject, np.float64)
+    n = subject.shape[0]
+    if n == 0:
+        return np.zeros((0,), np.float64)
+    clip_tri = np.asarray(clip_tri, np.float64)
+    if _ring_area(clip_tri) < 0:
+        clip_tri = clip_tri[::-1]
+
+    cap = 8
+    pts = np.zeros((n, cap, 2))
+    pts[:, :3] = subject
+    cnt = np.full(n, 3, np.int64)
+
+    for k in range(3):
+        a = clip_tri[k]
+        d = clip_tri[(k + 1) % 3] - a
+        # signed distance (positive = inside the CCW half-plane)
+        sd = (pts[..., 0] - a[0]) * d[1] - (pts[..., 1] - a[1]) * d[0]
+        sd = -sd  # left of a->b is inside for CCW clip
+        arange = np.arange(cap)[None, :]
+        live = arange < cnt[:, None]
+        inside = (sd >= 0) & live
+        nxt = (arange + 1) % np.maximum(cnt, 1)[:, None]
+        p_n = np.take_along_axis(pts, nxt[..., None], axis=1)
+        sd_n = np.take_along_axis(sd, nxt, axis=1)
+        cross = live & ((sd >= 0) != (sd_n >= 0))
+        denom = sd - sd_n
+        t = np.where(np.abs(denom) > 0, sd / np.where(denom == 0, 1, denom), 0.0)
+        inter = pts + t[..., None] * (p_n - pts)
+
+        # emit: for each live vertex, keep it if inside, and add the
+        # intersection point if the edge crosses -> stable order scan
+        emit_self = inside
+        emit_inter = cross
+        n_out = emit_self.sum(1) + emit_inter.sum(1)
+        new_pts = np.zeros_like(pts)
+        # positions via cumulative counts (vectorized two-slot scatter)
+        slot0 = np.cumsum(emit_self * 1 + emit_inter * 1, axis=1)
+        base = slot0 - (emit_self * 1 + emit_inter * 1)
+        idx_self = np.where(emit_self, base, cap - 1)
+        np.put_along_axis(
+            new_pts,
+            np.broadcast_to(idx_self[..., None], pts.shape).copy(),
+            np.where(emit_self[..., None], pts, 0.0),
+            axis=1,
+        )
+        idx_int = np.where(emit_inter, base + emit_self, cap - 1)
+        # second write wins only its own slots: build by maximum of
+        # scatter targets (slots are disjoint by construction)
+        tmp = np.zeros_like(pts)
+        np.put_along_axis(
+            tmp,
+            np.broadcast_to(idx_int[..., None], pts.shape).copy(),
+            np.where(emit_inter[..., None], inter, 0.0),
+            axis=1,
+        )
+        new_pts = new_pts + tmp
+        pts = new_pts
+        cnt = n_out
+
+    # shoelace over the first cnt vertices
+    arange = np.arange(cap)[None, :]
+    live = arange < cnt[:, None]
+    nxt = (arange + 1) % np.maximum(cnt, 1)[:, None]
+    p_n = np.take_along_axis(pts, nxt[..., None], axis=1)
+    terms = pts[..., 0] * p_n[..., 1] - p_n[..., 0] * pts[..., 1]
+    area = 0.5 * np.where(live, terms, 0.0).sum(1)
+    return np.abs(area)
+
+
+def polygon_overlay_areas(
+    tris: np.ndarray, polygon: Polygon
+) -> np.ndarray:
+    """EXACT intersection area of each (N, 3, 2) triangle with a polygon.
+
+    The reference computes these via GEOS overlay
+    (meshes/meshes.py:1226-1253); here the polygon's outer ring is
+    ear-clipped and each piece clips all triangles at once; hole areas
+    subtract.  Bounding-box prefiltering keeps the clip batches small.
+    """
+    tris = np.asarray(tris, np.float64)
+    n = tris.shape[0]
+    out = np.zeros(n)
+    if n == 0:
+        return out
+    tmin = tris.min(axis=1)
+    tmax = tris.max(axis=1)
+
+    def accumulate(ring, sign):
+        pieces = ear_clip(np.asarray(ring, np.float64))
+        for piece in pieces:
+            pmin = piece.min(axis=0)
+            pmax = piece.max(axis=0)
+            cand = np.nonzero(
+                (tmin[:, 0] <= pmax[0])
+                & (tmax[:, 0] >= pmin[0])
+                & (tmin[:, 1] <= pmax[1])
+                & (tmax[:, 1] >= pmin[1])
+            )[0]
+            if cand.size:
+                out[cand] += sign * clip_areas_convex(tris[cand], piece)
+
+    accumulate(polygon.exterior, 1.0)
+    for h in polygon.holes:
+        accumulate(h, -1.0)
+    return np.maximum(out, 0.0)
+
+
+def polygon_intersection_area(
+    a: Polygon,
+    b: Polygon,
+    a_tris: typing.Optional[np.ndarray] = None,
+    a_hole_tris: typing.Optional[list] = None,
+) -> float:
+    """EXACT area of intersection of two polygons (holes honored).
+
+    Ear-clips ``a`` and sums each piece's intersection with ``b`` via
+    :func:`polygon_overlay_areas`; ``a``'s holes subtract.  The building
+    block of the exact vector-vs-vector confusion matrix (reference
+    utils/prediction_metrics.py:95-145 computes these with GEOS).
+
+    Callers testing one ``a`` against MANY ``b``s should pass
+    ``a_tris`` / ``a_hole_tris`` (from :func:`ear_clip`) to hoist the
+    O(K^2) triangulation out of their inner loop.
+    """
+    ax0, ay0, ax1, ay1 = a.bounds
+    bx0, by0, bx1, by1 = b.bounds
+    if ax1 < bx0 or bx1 < ax0 or ay1 < by0 or by1 < ay0:
+        return 0.0
+    if a_tris is None:
+        a_tris = ear_clip(a.exterior)
+    if a_hole_tris is None:
+        a_hole_tris = [ear_clip(h) for h in a.holes]
+    area = float(polygon_overlay_areas(a_tris, b).sum())
+    for ht in a_hole_tris:
+        area -= float(polygon_overlay_areas(ht, b).sum())
+    return max(area, 0.0)

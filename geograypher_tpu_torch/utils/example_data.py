@@ -5,9 +5,8 @@ Port of ``local_to_ecef_frame``, ``make_metashape_xml`` and
 a complete fake Metashape export (a georeferenced scene mesh as PLY, a
 camera XML with a chunk -> ECEF component transform, per-camera label
 images rendered by the port's own ``render_flat``, and ground-truth label
-polygons), so every entry point can run hermetically.  The DTM file is
-left out until the port reads and writes GeoTIFF (ROADMAP A6): the
-returned dict has no ``dtm_file``.
+polygons, and a flat DTM GeoTIFF), so every entry point can run
+hermetically.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.fixtures import make_scene_mesh, nadir_camera
 from geograypher_tpu_torch.utils.io import write_image
 from geograypher_tpu_torch.utils.meshio import save_mesh
+from geograypher_tpu_torch.utils.raster import Raster, write_geotiff
 from geograypher_tpu_torch.utils.vector import Polygon, VectorData
 
 
@@ -130,7 +130,7 @@ def create_example_survey(
 
     Returns a dict of paths + ground-truth arrays:
     mesh_file, cameras_file, image_folder, label_folder, face_labels,
-    labels_vector_file, local_to_ecef, n_classes, utm_epsg.
+    labels_vector_file, dtm_file, local_to_ecef, n_classes, utm_epsg.
     """
     output_folder = Path(output_folder)
     (output_folder / "images").mkdir(parents=True, exist_ok=True)
@@ -206,12 +206,27 @@ def create_example_survey(
     labels_vector_file = output_folder / "labels.geojson"
     VectorData(polys, {"species": labels}, epsg=utm).to_file(labels_vector_file)
 
+    # flat DTM at ~0 elevation over the site
+    dtm_file = output_folder / "dtm.tif"
+    write_geotiff(
+        dtm_file,
+        Raster(
+            data=np.zeros((64, 64), np.float32),
+            transform=(
+                2 * scene_size / 64, 0.0, origin_utm[0] - scene_size,
+                0.0, -2 * scene_size / 64, origin_utm[1] + scene_size,
+            ),
+            epsg=utm,
+        ),
+    )
+
     return {
         "mesh_file": mesh_file,
         "cameras_file": cameras_file,
         "image_folder": output_folder / "images",
         "label_folder": output_folder / "labels",
         "labels_vector_file": labels_vector_file,
+        "dtm_file": dtm_file,
         "face_labels": face_labels,
         "local_to_ecef": l2e,
         "n_classes": n_objects + 1,

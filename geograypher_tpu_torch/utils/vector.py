@@ -6,11 +6,12 @@
   / GeoPackage writing (``json``, ``struct``, ``sqlite3``).
 * vectorized point-in-polygon (crossing number over all rings at once).
 * :func:`points_near_polygons`: which points lie within a distance of a
-  set of polygons, the one thing the port needs of a polygon buffer.
-
-Not carried over: the raster-assisted operations built on cv2
-(``rasterize_polygons``, ``polygons_from_mask``, ``union_all`` and the
-raster ``buffer_polygons``), which serve the polygon export (ROADMAP A6).
+  set of polygons, the exact test the ROI selection uses.
+* the raster-assisted polygon operations (``rasterize_polygons``,
+  ``polygons_from_mask``, ``buffer_polygons``, ``union_all``), which the
+  JAX package builds on cv2, on the port's numpy ``utils/polyfill.py``
+  (``fillPoly``) and ``utils/contours.py`` (``findContours``, the
+  elliptical ``dilate`` and ``erode``).
 """
 
 from __future__ import annotations
@@ -26,8 +27,10 @@ import numpy as np
 
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.utils import crs as crs_utils
+from geograypher_tpu_torch.utils.contours import dilate, ellipse_kernel, erode, find_contours
 from geograypher_tpu_torch.utils.files import ensure_containing_folder
 from geograypher_tpu_torch.utils.parsing import crs_from_srs_text
+from geograypher_tpu_torch.utils.polyfill import fill_poly
 
 
 class Polygon:
@@ -61,6 +64,11 @@ class Polygon:
         for h in self.holes:
             inside &= ~_points_in_ring(pts, h)
         return inside
+
+    def buffer(self, dist: float, resolution: int = 8) -> "Polygon":
+        """Approximate Minkowski buffer via raster dilation/erosion."""
+        polys = buffer_polygons([self], dist, resolution=resolution)
+        return polys[0] if polys else Polygon(np.zeros((0, 2)))
 
 
 def _ring_area(ring: np.ndarray) -> float:
@@ -708,3 +716,127 @@ def points_near_polygons(
                 keep[held] = _distance_to_edges(pts[idx[held]], a, b) >= -dist
             out[idx[keep]] = True
     return out
+
+
+# -- raster-assisted polygon ops ---------------------------------------------
+
+
+def rasterize_polygons(
+    polygons: Sequence[Polygon],
+    values: Sequence[int],
+    bounds: Tuple[float, float, float, float],
+    shape: Tuple[int, int],
+    background: int = -1,
+) -> np.ndarray:
+    """Burn polygons into an (H, W) int32 grid over ``bounds``
+    (x0, y0, x1, y1); row 0 is the TOP (max y).  Later polygons win.
+    Vertices round half to even to pixel corners, as the JAX package's
+    ``np.round`` does; holes are filled with ``background``."""
+    h, w = shape
+    x0, y0, x1, y1 = bounds
+    sx = w / (x1 - x0)
+    sy = h / (y1 - y0)
+    img = np.full((h, w), background, dtype=np.int32)
+
+    def pixels(ring):
+        return np.round(
+            np.stack([(ring[:, 0] - x0) * sx, (y1 - ring[:, 1]) * sy], axis=1)
+        ).astype(np.int32)
+
+    for poly, val in zip(polygons, values):
+        fill_poly(img, pixels(poly.exterior), int(val))
+        for hole in poly.holes:
+            fill_poly(img, pixels(hole), int(background))
+    return img
+
+
+def polygons_from_mask(
+    mask: np.ndarray,
+    bounds: Tuple[float, float, float, float],
+) -> List[Polygon]:
+    """Extract polygons (with holes) from a boolean (H, W) mask over
+    ``bounds``; inverse of :func:`rasterize_polygons`.  Rings run through
+    the centres of the border pixels (``utils/contours.py``, cv2's
+    ``findContours`` with ``RETR_CCOMP`` and ``CHAIN_APPROX_SIMPLE``);
+    borders of fewer than 3 points are dropped."""
+    h, w = mask.shape
+    x0, y0, x1, y1 = bounds
+    sx = (x1 - x0) / w
+    sy = (y1 - y0) / h
+    contours, hierarchy = find_contours(mask)
+    if not contours:
+        return []
+
+    def to_world(c):
+        c = c.astype(np.float64)
+        return np.stack(
+            [x0 + (c[:, 0] + 0.5) * sx, y1 - (c[:, 1] + 0.5) * sy], axis=1
+        )
+
+    polys = []
+    for i, cont in enumerate(contours):
+        if hierarchy[i][3] != -1:  # a hole; handled with its parent
+            continue
+        if len(cont) < 3:
+            continue
+        holes = []
+        child = hierarchy[i][2]
+        while child != -1:
+            if len(contours[child]) >= 3:
+                holes.append(to_world(contours[child]))
+            child = hierarchy[child][0]
+        polys.append(Polygon(to_world(cont), holes))
+    return polys
+
+
+def buffer_polygons(
+    polygons: Sequence[Polygon],
+    dist: float,
+    resolution: int = 8,
+    grid: int = 2048,
+) -> List[Polygon]:
+    """Raster-based polygon buffering (dilate by ``dist``; negative
+    erodes): the polygons burnt into a ``grid`` x ``grid`` mask over their
+    bounds padded by 1.5 ``dist``, dilated or eroded with an ellipse of
+    ``2 dist`` pixels, traced back.  ``resolution`` is accepted and
+    unused, as in the JAX package."""
+    if not polygons:
+        return []
+    bs = np.asarray([p.bounds for p in polygons])
+    pad = abs(dist) * 1.5 + 1e-9
+    x0, y0 = bs[:, 0].min() - pad, bs[:, 1].min() - pad
+    x1, y1 = bs[:, 2].max() + pad, bs[:, 3].max() + pad
+    bounds = (x0, y0, x1, y1)
+    mask = rasterize_polygons(
+        polygons, [1] * len(polygons), bounds, (grid, grid), 0) > 0
+    px = abs(dist) * grid / max(x1 - x0, y1 - y0)
+    kernel = ellipse_kernel(max(int(round(px * 2)) | 1, 3))
+    out = dilate(mask, kernel) if dist > 0 else erode(mask, kernel)
+    return polygons_from_mask(out, bounds)
+
+
+def union_all(
+    polygons: Sequence[Polygon], grid: int = 4096, method: str = "auto"
+) -> List[Polygon]:
+    """Union of many polygons.
+
+    ``method="exact"`` runs the planar-arrangement boolean engine
+    (:mod:`utils.boolean_ops`, no grid); ``"raster"`` burns onto a
+    ``grid``-sized image and re-vectorizes; ``"auto"`` (default) picks
+    exact up to 10^5 edges.
+    """
+    if not polygons:
+        return []
+    n_edges = sum(int(p.exterior.shape[0]) for p in polygons) + sum(
+        int(h.shape[0]) for p in polygons for h in p.holes
+    )
+    if method == "exact" or (method == "auto" and n_edges <= 100_000):
+        from geograypher_tpu_torch.utils.boolean_ops import union_exact
+
+        return union_exact(polygons)
+    bs = np.asarray([p.bounds for p in polygons])
+    x0, y0, x1, y1 = bs[:, 0].min(), bs[:, 1].min(), bs[:, 2].max(), bs[:, 3].max()
+    pad = max(x1 - x0, y1 - y0) * 0.01 + 1e-9
+    bounds = (x0 - pad, y0 - pad, x1 + pad, y1 + pad)
+    mask = rasterize_polygons(polygons, [1] * len(polygons), bounds, (grid, grid), 0)
+    return polygons_from_mask(mask > 0, bounds)

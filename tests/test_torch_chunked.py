@@ -238,10 +238,25 @@ def test_mesh_chunk_is_an_exact_box():
 
 
 def test_label_polygons_chunked_waits_for_a6(scene):
-    tmesh = scene[3]
-    polys = VectorData([Polygon(np.array([[0, 0], [1, 0], [1, 1]], float))])
-    with pytest.raises(NotImplementedError, match="A6"):
-        tchunked.label_polygons_chunked(tmesh, np.zeros(tmesh.n_faces), polys)
+    """Since A6 (polygon labelling) is ported: polygons in spatial clusters
+    of four, each cluster labelled against the mesh, give the JAX
+    package's labels in the polygons' order (the exact mode; a polygon's
+    label does not depend on its cluster)."""
+    from geograypher_tpu.utils.vector import Polygon as JaxPolygon
+    from geograypher_tpu.utils.vector import VectorData as JaxVectorData
+
+    jmesh, tmesh = scene[0], scene[3]
+    labels = np.asarray(chunk_scene()[2])
+    rng = np.random.default_rng(5)
+    rings = [np.array([cx, cy]) + np.array([[0, 0], [0.5, 0.05], [0.4, 0.45], [-0.1, 0.4]])
+             for cx, cy in rng.uniform(-1.8, 1.3, (12, 2))]
+    got = tchunked.label_polygons_chunked(
+        tmesh, labels, VectorData([Polygon(r) for r in rings]), polygons_per_cluster=4,
+        mode="exact")
+    want = jchunked.label_polygons_chunked(
+        jmesh, labels, JaxVectorData([JaxPolygon(r) for r in rings]),
+        polygons_per_cluster=4, mode="exact")
+    assert got == want and len(got) == 12 and None not in got
 
 
 # -- the entry points' chunk options, batch_size -------------------------------------

@@ -646,7 +646,8 @@ def test_local_class_image_is_the_host_remap():
 def test_export_face_labels_vector_matches_jax(tmp_path):
     """Exact class regions of a labelled, georeferenced mesh: the same
     polygons (every ring vertex equal), classes, names and CRS; the raster
-    mode raises naming A6."""
+    mode (ported since A6) gives the JAX package's polygons through the
+    same orthographic pix2face."""
     survey = create_example_survey(tmp_path / "s", n_cameras=1,
                                    write_label_images=False)
     from geograypher_tpu.meshes.mesh import TexturedMesh as JaxTexturedMesh
@@ -670,8 +671,17 @@ def test_export_face_labels_vector_matches_jax(tmp_path):
         for gh, wh in zip(g.holes, w.holes):
             np.testing.assert_array_equal(gh, wh)
     assert len(VectorData.read_file(tmp_path / "v.geojson")) == len(want)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmesh.export_face_labels_vector(labels, mode="raster")
+    ortho = jmesh.ortho_pix2face(resolution_m=0.25)
+    tmesh.ortho_pix2face = lambda *a, stats=None, **k: (ortho[0].copy(), *ortho[1:])
+    raster = tmesh.export_face_labels_vector(labels, label_names=names,
+                                             resolution_m=0.25, mode="raster")
+    jraster = jmesh.export_face_labels_vector(labels, label_names=names,
+                                              resolution_m=0.25, mode="raster")
+    assert len(raster) == len(jraster) > 1 and raster.attributes == jraster.attributes
+    assert raster.epsg == jraster.epsg == want.epsg
+    for g, w in zip(raster.geometries, jraster.geometries):
+        np.testing.assert_array_equal(g.exterior, w.exterior)
+        assert len(g.holes) == len(w.holes)
 
 
 def test_aggregate_images_writes_the_top_down_vector(survey, tmp_path):

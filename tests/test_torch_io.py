@@ -321,9 +321,9 @@ def test_save_mesh_matches_jax(tmp_path):
 
 
 def test_example_survey_matches_jax(tmp_path):
-    """The survey on disk: the same mesh, camera XML, polygons and label
-    images (pixel for pixel) as the JAX package's generator, without its
-    DTM file."""
+    """The survey on disk: the same mesh, camera XML, polygons, label
+    images (pixel for pixel) and DTM GeoTIFF (the same raster, through
+    either package's reader) as the JAX package's generator."""
     from geograypher_tpu.utils import example_data as jex
     from geograypher_tpu_torch.utils import example_data as tex
 
@@ -331,8 +331,14 @@ def test_example_survey_matches_jax(tmp_path):
                                   jex.local_to_ecef_frame(36.0, -119.0, 12.0))
     ours = tex.create_example_survey(tmp_path / "t", device="cpu")
     theirs = jex.create_example_survey(tmp_path / "j")
-    assert "dtm_file" not in ours
-    assert set(ours) == set(theirs) - {"dtm_file"}
+    assert set(ours) == set(theirs)
+    from geograypher_tpu.utils.raster import read_geotiff as jax_read_geotiff
+    from geograypher_tpu_torch.utils.raster import read_geotiff
+
+    for path in (ours["dtm_file"], theirs["dtm_file"]):
+        got, want = read_geotiff(path), jax_read_geotiff(theirs["dtm_file"])
+        np.testing.assert_array_equal(got.data, want.data)
+        assert tuple(got.transform) == tuple(want.transform) and got.epsg == want.epsg
     assert ours["cameras_file"].read_text() == theirs["cameras_file"].read_text()
     assert ours["mesh_file"].read_bytes() == theirs["mesh_file"].read_bytes()
     assert json.loads(ours["labels_vector_file"].read_text()) == \

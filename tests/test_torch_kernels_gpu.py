@@ -483,3 +483,51 @@ def test_pinned_upload_two_slots_on_a_copy_stream(cuda):
     assert upload._stream is not None
     assert upload._stream.cuda_stream != torch.cuda.current_stream().cuda_stream
     assert all(s is not None for s in upload._stage)
+
+
+def ortho_mesh(device, caps=None):
+    from geograypher_tpu_torch.meshes.mesh import TexturedMesh
+
+    verts, faces = make_grid_mesh(
+        n=101, size=4.0, z_fn=lambda x, y: 0.1 * np.sin(3 * x) * np.cos(3 * y))
+    cfg = tr.RasterConfig(caps=caps or (4096, 1024, 256, 256))
+    return TexturedMesh((verts, faces), raster_config=cfg, device=device)
+
+
+def test_ortho_kernel_matches_plain(cuda):
+    """The orthographic camera (f ~1e4 at 0.016 m a pixel, 251 x 251 px):
+    the raster kernel bit for bit against its plain version, and the map
+    ``ortho_pix2face`` pastes is the kernel's."""
+    mesh = ortho_mesh(cuda)
+    plan = mesh.ortho_plan(resolution_m=0.016)
+    cfg = mesh.raster_config
+    h, w = plan.tile_h, plan.tile_w
+    setup = tr.setup_triangles(tr.transform_to_camera(plan.tri, plan.tiles[0][2]),
+                               plan.focal, w, h, cfg.znear)
+    binned = tr.bin_triangles(setup, cfg, h, w)
+    assert int(binned.overflow) == 0
+    cand, counts = tr.binned_face_lists(binned, cfg)
+    planes = setup.planes.contiguous()
+    before = raster_tiles.launches
+    got = raster_tiles.raster_tiles(planes, setup.bbox, cand, counts, cfg, h, w)
+    torch.cuda.synchronize()
+    assert raster_tiles.launches == before + 1
+    want = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, h, w)
+    assert torch.equal(got, want)
+    p2f, _, _ = mesh.ortho_pix2face(resolution_m=0.016)
+    np.testing.assert_array_equal(p2f, got.cpu().numpy())
+    assert (p2f >= 0).mean() > 0.95
+
+
+def test_ortho_overflow_raises_on_the_card(cuda):
+    """Caps too small for the ortho's tiles: one overflow read after the
+    last tile, a raise naming the tiles and the caps; the census sizes
+    caps that hold."""
+    mesh = ortho_mesh(cuda, caps=(8, 8, 8, 8))
+    with pytest.raises(RuntimeError, match=r"overflow in tiles .* caps \(8, 8, 8, 8\)"):
+        mesh.ortho_pix2face(resolution_m=0.016, max_pixels=100)
+    plan = mesh.ortho_plan(resolution_m=0.016, max_pixels=100)
+    census = mesh.ortho_raster_census(plan, tr.RasterConfig())
+    mesh.raster_config = tr.RasterConfig(caps=tuple(census))
+    p2f, _, _ = mesh.ortho_pix2face(resolution_m=0.016, max_pixels=100)
+    assert len(plan.tiles) == 9 and (p2f >= 0).mean() > 0.95

@@ -107,7 +107,7 @@ def test_vector_texture_matches_jax(survey):
 
 def test_texture_sources(survey, tmp_path):
     """Arrays (per vertex, per face), a .npy file, a named scalar of the
-    mesh file, another mesh; raster files raise."""
+    mesh file, another mesh, a raster file sampled at the vertices."""
     jmesh, mesh = both(survey)
     rng = np.random.default_rng(0)
     per_face = rng.integers(0, 4, mesh.n_faces).astype(float)
@@ -136,10 +136,17 @@ def test_texture_sources(survey, tmp_path):
     shared = TexturedMesh(mesh, texture=per_face, device="cpu")
     assert shared.verts is mesh.verts and shared.CRS == mesh.CRS
     np.testing.assert_array_equal(shared._local_transform, mesh._local_transform)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        mesh.load_texture("dtm.tif")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        mesh.label_ground_class("dtm.tif")
+    # a raster texture (ported since A6): sampled at every vertex, as the
+    # JAX package samples it (more in tests/test_torch_dtm.py)
+    from geograypher_tpu_torch.utils.raster import Raster, write_geotiff
+
+    x0, y0 = mesh.verts[:, 0].min() - 1, mesh.verts[:, 1].max() + 1
+    write_geotiff(tmp_path / "r.tif", Raster(
+        np.arange(400, dtype=np.float32).reshape(20, 20), (0.5, 0, x0, 0, -0.5, y0)))
+    mesh.load_texture(tmp_path / "r.tif")
+    jmesh.load_texture(tmp_path / "r.tif")
+    np.testing.assert_array_equal(mesh.vertex_texture, jmesh.vertex_texture)
+    assert np.isfinite(mesh.vertex_texture).any()
     with pytest.raises(ValueError, match="Cannot load texture"):
         mesh.load_texture("labels.txt")
 

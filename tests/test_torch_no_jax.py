@@ -35,7 +35,7 @@ IMPORT_ALL = REFUSE + r"""
 import importlib, pkgutil
 
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "sklearn", "networkx")
+           "sklearn", "networkx", "rasterio", "osgeo")
 refuse(*REFUSED)
 import geograypher_tpu_torch
 names = ["chip_smoke"] + [
@@ -51,7 +51,9 @@ for name in ("parallel.pipeline", "parallel.sharding", "meshes.chunked",
              "utils.kmeans", "utils.numeric", "utils.louvain", "utils.polyfill",
              "utils.exact_geometry", "ops.raycast", "ops.triangulate",
              "meshes.sparse", "entrypoints.project_detections",
-             "entrypoints.multiview_detections"):
+             "entrypoints.multiview_detections", "utils.tiff", "utils.raster",
+             "utils.contours", "utils.boolean_ops", "utils.geospatial",
+             "entrypoints.render_height_masks", "entrypoints.label_polygons"):
     assert "geograypher_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -226,6 +228,54 @@ assert not loaded(*REFUSED), loaded(*REFUSED)
 print("ok")
 """
 
+# chip_smoke.py's phase 9 at a tiny size on CPU tensors, with the same
+# modules refused: a DTM GeoTIFF written and read by the port's own codec,
+# heights above ground, ``render_height_masks``, ``aggregate_images`` with
+# the DTM on the planned route, the orthographic raster untiled and tiled,
+# the raster vector export and ``label_polygons`` in three modes
+PHASE9_PATH = REFUSE + r"""
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn", "networkx", "rasterio", "osgeo")
+refuse(*REFUSED)
+import tempfile
+from pathlib import Path
+import numpy as np
+import torch
+import chip_smoke as cs
+from geograypher_tpu_torch.meshes.mesh import TexturedMesh
+
+TexturedMesh._PLANNED_MIN_PIXELS = 1  # the planned route at this size
+cs.DTM_SIZE, cs.DTM_TILE = 256, (64, 64)
+cs.ORTHO_RES_M, cs.ORTHO_TILED_MAX_PIXELS, cs.ORTHO_BIG_RES_M = 0.02, 80, 0.01
+verts, faces = cs.make_grid_mesh(n=41, size=4.0, z_fn=lambda x, y: cs._surface(x, y))
+w, h = 96, 64
+c2ws = []
+for k in range(6):
+    if k % 2 == 0:
+        c = cs.nadir_camera(4.0, 50.0, w)
+        c[:3, 3] += (0.05 * k - 0.1, 0.03 * k, 0.0)
+    else:
+        c = cs.oblique_camera(4.0, 65.0, w, pitch_deg=20.0 + 3 * k,
+                              azimuth_deg=60.0 * k)
+    c2ws.append(c)
+sensors = {0: {"f": 50.0, "image_width": w, "image_height": h},
+           1: {"f": 65.0, "image_width": w, "image_height": h},
+           3: {"f": 65.0, "image_width": w, "image_height": h,
+               "distortion_params": {"k1": 0.02}}}
+with tempfile.TemporaryDirectory() as folder:
+    survey = cs._write_survey(Path(folder) / "detections", verts, faces, c2ws, sensors,
+                              [0, 1, 0, 1, 0, 3], w, h, phase="8a")
+    launches, row, row_b = cs._phase9(folder, survey, verts,
+                                      cs.RasterConfig(caps=(2048, 512, 256, 256)),
+                                      torch.device("cpu"))
+# CPU tensors take the plain versions
+assert not any(launches.values()), launches
+assert row["max_abs_err"] == 0 and row["shape"] == [205, 205]
+assert not loaded(*REFUSED), loaded(*REFUSED)
+print("ok")
+"""
+
+
 def run(code):
     # one intra-op thread: the tiny tensors gain nothing from more, and
     # parallel test workers would oversubscribe the cores
@@ -237,12 +287,12 @@ def run(code):
 
 def test_no_port_file_imports_the_jax_package():
     """A source scan: no import of ``geograypher_tpu`` (or jax, cv2, PIL,
-    pandas, sklearn, networkx) in any file of the port or in chip_smoke.py,
-    at module level or lazily; ``imageio`` only in the guarded fallback of
-    ``utils/io.py``."""
+    pandas, sklearn, networkx, rasterio, GDAL) in any file of the port or
+    in chip_smoke.py, at module level or lazily; ``imageio`` only in the
+    guarded fallback of ``utils/io.py``."""
     pattern = re.compile(r"^\s*(from|import)\s+"
-                         r"(geograypher_tpu|jax|cv2|PIL|pandas|sklearn|networkx)"
-                         r"([.\s]|$)")
+                         r"(geograypher_tpu|jax|cv2|PIL|pandas|sklearn|networkx|"
+                         r"rasterio|osgeo)([.\s]|$)")
     files = sorted((ROOT / "geograypher_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) >= 25
@@ -262,7 +312,7 @@ def test_no_port_file_imports_the_jax_package():
 def test_port_and_chip_smoke_import_no_jax():
     out = run(IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45  # every module was imported
+    assert int(out.stdout.strip()) >= 52  # every module was imported
 
 
 def test_chip_smoke_path_needs_nothing_of_the_jax_package():
@@ -279,6 +329,12 @@ def test_chip_smoke_render_path_needs_nothing_of_the_jax_package():
 
 def test_chip_smoke_detection_path_needs_nothing_of_the_jax_package():
     out = run(DETECTION_PATH)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_chip_smoke_dtm_ortho_polygon_path_needs_nothing_of_the_jax_package():
+    out = run(PHASE9_PATH)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
 

@@ -524,8 +524,8 @@ def test_render_labels_matches_jax_mesh(survey, tmp_path):
         name = f"img_{k:04d}.png"
         np.testing.assert_array_equal(read_image_or_numpy(tmp_path / "c" / name),
                                       read_image_or_numpy(tmp_path / "t" / name))
-    for kw, item in ((dict(DTM_file="dtm.tif"), "A6"),
-                     (dict(make_composites=True), "A9"), (dict(vis=True), "A9")):
+    # DTM_file is ported since A6 (tests/test_torch_dtm.py)
+    for kw, item in ((dict(make_composites=True), "A9"), (dict(vis=True), "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             render_labels(survey["mesh_file"], survey["cameras_file"],
                           survey["image_folder"], survey["labels_vector_file"],

@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's aggregation, render, detection, DTM and polygon paths once on one CUDA card.
+"""Drive the PyTorch port's aggregation, render, detection, DTM, polygon, image-selection and ortho-prediction paths once on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -124,7 +124,24 @@ Phases (each prints one line; any failure raises and exits nonzero):
    2 x 2 tiles (one tile against the plain version); ``"9c"``, phase 5's six star polygons painted on the mesh, the
    raster vector export, and the ``label_polygons`` entry point without
    and with the DTM and in the exact mode (every polygon no other overlaps
-   labelled with its own species), with their stage times.
+   labelled with its own species), with their stage times;
+10. image selection and ortho predictions on the same survey folder:
+   ``"10a"``, ``determine_minimum_overlapping_images`` over 200 4K cameras
+   of the bench suite's pattern (a Metashape XML beside phase 5's mesh)
+   at its default image scale 0.05 on census-sized caps (one raster and
+   one counts launch a view, zero overflow; every 10th view's visibility
+   equal to the plain raster and counts; the picks equal to the plain
+   greedy over the dense matrix; every seen face covered), then
+   ``"10a_full"``, the same over phase 8's 20 views at scale 1.0 (every
+   view held against the plain run); ``"10b"``, phase 9b's ~10000 px
+   ortho map coloured by the painted species as an RGBA GeoTIFF,
+   ``chip_ortho`` (2048 px chips at a 1024 px stride) with the six star
+   polygons as labels, the label chips as predictions (a third re-encoded
+   with PNG filter types 3 and 4), ``assemble_ortho_predictions`` on the
+   card bit-equal to the plain numpy assembly and equal to the burned
+   labels on every observed pixel, the raster confusion matrix diagonal,
+   and phase 9c's labelled polygons scored against the stars (raster and
+   exact), with their stage times.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -152,10 +169,12 @@ import logging
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -167,6 +186,15 @@ from geograypher_tpu_torch.cameras.distortion import remap_image, remap_image_to
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
+from geograypher_tpu_torch.entrypoints.annotation_image_selection import (
+    determine_minimum_overlapping_images,
+    greedy_set_cover,
+    visibility_matrix,
+)
+from geograypher_tpu_torch.entrypoints.assemble_ortho_predictions import (
+    assemble_ortho_predictions,
+)
+from geograypher_tpu_torch.entrypoints.chip_ortho import chip_ortho
 from geograypher_tpu_torch.entrypoints.label_polygons import label_polygons
 from geograypher_tpu_torch.entrypoints.multiview_detections import multiview_detections
 from geograypher_tpu_torch.entrypoints.project_detections import project_detections
@@ -198,7 +226,12 @@ from geograypher_tpu_torch.ops.rasterize import (
 )
 from geograypher_tpu_torch.parallel import pipeline, planner, sharding
 from geograypher_tpu_torch.ops.raycast import clip_line_segments
+from geograypher_tpu_torch.predictors.ortho import (
+    assemble_tiled_predictions_plain,
+    create_windows,
+)
 from geograypher_tpu_torch.predictors.segmentors import (
+    ImageIDSegmentor,
     RegionDetectionSegmentor,
     TabularRectangleSegmentor,
 )
@@ -217,14 +250,20 @@ from geograypher_tpu_torch.utils.fixtures import (
     nadir_camera,
     oblique_camera,
 )
+from geograypher_tpu_torch.utils import io as png_io
 from geograypher_tpu_torch.utils.io import (
     PNG_ZLIB_LEVEL,
     read_image_or_numpy,
     write_image,
 )
 from geograypher_tpu_torch.utils.meshio import save_mesh
+from geograypher_tpu_torch.utils.prediction_metrics import (
+    cf_from_vector_vector,
+    compute_comprehensive_metrics,
+    compute_confusion_matrix_from_geospatial,
+)
 from geograypher_tpu_torch.utils.raster import Raster, read_geotiff, write_geotiff
-from geograypher_tpu_torch.utils.vector import Polygon, VectorData
+from geograypher_tpu_torch.utils.vector import Polygon, VectorData, rasterize_polygons
 
 N_CLASSES = 10
 H, W = 2160, 3840
@@ -1171,14 +1210,20 @@ def main():
             folder, verts, faces, _suite_cameras(n_views=PIPELINE_VIEWS), sensors,
             _suite_sensor_ids(PIPELINE_VIEWS), RasterConfig(caps=caps_d), card=smi)
         # -- phase 9: DTM, orthographic raster, polygons on phase 8's survey ---
-        launches_9, ortho_row, ortho_big_row = _phase9(
-            folder, _survey_of(Path(folder) / "detections"), verts,
-            RasterConfig(caps=caps_d), dev, card=smi)
+        survey_8 = _survey_of(Path(folder) / "detections")
+        launches_9, ortho_row, ortho_big_row, big = _phase9(
+            folder, survey_8, verts, RasterConfig(caps=caps_d), dev, card=smi)
+        # -- phase 10: image selection; ortho chips, assembly and metrics ------
+        t10 = time.perf_counter()
+        launches_10 = _selection_phase(folder, survey_8, sensors, dev, card=smi)
+        _ortho_predict_phase(folder, survey_8, big, dev, card=smi)
+        del big
+        _line("10", seconds=round(time.perf_counter() - t10, 3), launches=launches_10)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
-    # the kernels' launches on phases 7, 7c, 8 and 9's paths
+    # the kernels' launches on phases 7, 7c, 8, 9 and 10's paths
     later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
              + launches_7s[name] + launches_8[name] + launches_9[name]
-             for name in launches_7}
+             + launches_10[name] for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
     # level-S path, phase 5's two entry points, phase 6's planned route,
@@ -1718,15 +1763,8 @@ def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height
     t0 = time.perf_counter()
     mesh_file = folder / "mesh.ply"
     save_mesh(mesh_file, verts, faces)
-    names = [f"view_{k:02d}.png" for k in range(len(c2ws))]
-    cameras_file = folder / "cameras.xml"
-    order = sorted(sensors)
-    cameras_file.write_text(make_metashape_xml(
-        c2ws, names, local_to_ecef_frame(lat, lon), 0.0, width, height,
-        sensors=[{"f": sensors[k]["f"], "cx": sensors[k].get("cx", 0.0),
-                  "cy": sensors[k].get("cy", 0.0),
-                  "distortion": sensors[k].get("distortion_params")} for k in order],
-        sensor_ids=[order.index(k) for k in sensor_ids]))
+    _write_cameras(folder / "cameras.xml", c2ws, sensors, sensor_ids, width, height,
+                   lat, lon)
     utm = crs_utils.utm_epsg_for(lat, lon)
     origin = crs_utils.transform_points(np.array([[lat, lon, 0.0]]), 4326, utm)[0]
     polys, species = _label_polygons(origin[:2], size)
@@ -1738,6 +1776,21 @@ def _write_survey(folder, verts, faces, c2ws, sensors, sensor_ids, width, height
           species=sorted(set(species)), utm_epsg=utm,
           write_s=round(time.perf_counter() - t0, 3))
     return survey
+
+
+def _write_cameras(path, c2ws, sensors, sensor_ids, width, height, lat=36.0,
+                   lon=-119.0):
+    """The cameras as a Metashape XML with a local -> ECEF transform, views
+    named ``view_<k>.png`` (two digits, or three past 100 views)."""
+    digits = 2 if len(c2ws) <= 100 else 3
+    names = [f"view_{k:0{digits}d}.png" for k in range(len(c2ws))]
+    order = sorted(sensors)
+    Path(path).write_text(make_metashape_xml(
+        c2ws, names, local_to_ecef_frame(lat, lon), 0.0, width, height,
+        sensors=[{"f": sensors[k]["f"], "cx": sensors[k].get("cx", 0.0),
+                  "cy": sensors[k].get("cy", 0.0),
+                  "distortion": sensors[k].get("distortion_params")} for k in order],
+        sensor_ids=[order.index(k) for k in sensor_ids]))
 
 
 def _mask_of(p2f, face_tex):
@@ -2480,10 +2533,12 @@ def _detection_kernels_vs_plain(mesh, seg, cfg, w, h, timing):
     return row
 
 
-def _plain_index_run(mesh, seg, n, centres_by_view):
+def _plain_index_run(mesh, seg, n, centres_by_view, **kwargs):
     """The sparse counts of every view again, through the plain raster and
     the plain counts (no kernel may launch), and each view's pix2face at
-    the given detection centres.  Returns (CSR, {view: faces at centres})."""
+    the given detection centres; ``kwargs`` go to
+    ``aggregate_index_predictions``.  Returns (CSR, {view: faces at
+    centres})."""
     import geograypher_tpu_torch.ops.rasterize as rasterize_mod
 
     kernel_raster, kernel_counts = rasterize_mod.raster_tiles, sparse.face_class_counts
@@ -2507,7 +2562,7 @@ def _plain_index_run(mesh, seg, n, centres_by_view):
     mesh._pix2face_device = recording
     _reset_launches()
     try:
-        counts, _ = sparse.aggregate_index_predictions(mesh, seg, n)
+        counts, _ = sparse.aggregate_index_predictions(mesh, seg, n, **kwargs)
     finally:
         rasterize_mod.raster_tiles, sparse.face_class_counts = kernel_raster, kernel_counts
         del mesh._pix2face_device
@@ -3007,8 +3062,9 @@ def _ortho_phase(mesh, dev, card=None):
     footprint in 3 x 3 tiles (every pasted tile bit-equal to its plain
     version), both held against the float64 oracle in windows and at
     every hole, and a ~10000 px ortho in 2 x 2 tiles (one tile against the
-    plain version).  Returns (the untiled configuration, the kernel row,
-    the launches)."""
+    plain version).  Returns (the untiled configuration, the kernel rows
+    at ~2500 px and on a ~5000 px tile, the launches, and the ~10000 px
+    map with its bounds and EPSG)."""
     _reset_launches()
     plan = mesh.ortho_plan(resolution_m=ORTHO_RES_M)
     census, caps = _ortho_caps(mesh, plan)
@@ -3061,7 +3117,7 @@ def _ortho_phase(mesh, dev, card=None):
     _reset_launches()
     _sync(dev)
     t0 = time.perf_counter()
-    p2f_b, _, _ = mesh.ortho_pix2face(resolution_m=ORTHO_BIG_RES_M, stats=stats_b)
+    p2f_b, bounds_b, _ = mesh.ortho_pix2face(resolution_m=ORTHO_BIG_RES_M, stats=stats_b)
     big_s = time.perf_counter() - t0
     for key, n in _launches().items():
         launches[key] += n
@@ -3072,7 +3128,6 @@ def _ortho_phase(mesh, dev, card=None):
     del tile_b
     big_shape = list(p2f_b.shape)
     big_coverage = float((p2f_b >= 0).mean())
-    del p2f_b
     _line("9b", shape=list(p2f.shape), res_m=ORTHO_RES_M, census=census, caps=list(caps),
           overflow=0, ortho_s=round(ortho_s, 4),
           raster_s=round(stats["raster_s"], 4), download_s=round(stats["download_s"], 4),
@@ -3090,7 +3145,7 @@ def _ortho_phase(mesh, dev, card=None):
                    download_s=round(stats_b["download_s"], 4), coverage=big_coverage,
                    kernel=row_b),
           launches=launches, card=card)
-    return cfg, row, row_b, launches
+    return cfg, row, row_b, launches, dict(p2f=p2f_b, bounds=bounds_b, epsg=epsg)
 
 
 def _polygon_phase(folder, survey, mesh, dtm, cfg, dev, card=None):
@@ -3164,16 +3219,374 @@ def _polygon_phase(folder, survey, mesh, dtm, cfg, dev, card=None):
 def _phase9(folder, survey, verts, cfg, dev, card=None):
     """Phase 9 on phase 8's survey on disk: 9a (DTM), 9b (ortho), 9c
     (polygons).  Returns (the kernels' launches, the ortho kernel rows at
-    ~2500 px and on a ~5000 px tile)."""
+    ~2500 px and on a ~5000 px tile, the ~10000 px ortho map with its
+    bounds and EPSG)."""
     t0 = time.perf_counter()
     mesh, dtm, launches = _dtm_phase(folder, survey, verts, cfg, dev, card)
-    cfg_o, row, row_b, launches_b = _ortho_phase(mesh, dev, card)
+    cfg_o, row, row_b, launches_b, big = _ortho_phase(mesh, dev, card)
     launches_c = _polygon_phase(folder, survey, mesh, dtm, cfg_o, dev, card)
     for more in (launches_b, launches_c):
         for k, n in more.items():
             launches[k] += n
     _line("9", seconds=round(time.perf_counter() - t0, 3), launches=launches)
-    return launches, row, row_b
+    return launches, row, row_b, big
+
+
+# -- phase 10: image selection; ortho chips, assembled predictions, metrics ------------
+
+# a survey of hundreds of 4K images to select from; at 400 views the
+# check's plain dense greedy alone took 41 s on an H100 machine's host
+# (every view is chosen at scale 0.05, and each pick copies the uncovered
+# rows of the dense matrix)
+SELECTION_VIEWS = 200
+SELECTION_SCALE = 0.05  # determine_minimum_overlapping_images' default
+# views of 10a held against the plain raster and counts: at 0.05 a tile's
+# list holds tens of thousands of faces, and the plain raster takes ~0.2 s a
+# view on the card (it evaluates every listed face at every pixel of a tile)
+SELECTION_PLAIN_EVERY = 10
+CHIP_SIZE, CHIP_STRIDE = 2048, 1024  # up to 4 chips over a pixel
+CHIP_MAX_OVERLAP = 4
+CHIP_TILE = (512, 512)  # the ortho GeoTIFF's deflate tiles
+# the ortho's colours: a species' colour, shaded by its face, or the ground's
+SPECIES_RGB = np.array([[34, 139, 34], [0, 100, 0], [154, 205, 50], [85, 107, 47]],
+                       np.int32)
+GROUND_RGB = (139, 115, 85)
+
+
+def encode_png_filtered(image, filters) -> bytes:
+    """The bytes of a PNG file of a uint8 / uint16 (H, W) or (H, W, C)
+    image (C of 2-4) whose row ``y`` carries filter type ``filters[y]``
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth).  An encoder's predictors
+    read the original bytes, so every row is one vectorised pass."""
+    img = np.asarray(image)
+    h, w = img.shape[:2]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    bpp = channels * img.dtype.itemsize
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">")))
+    x = rows.view(np.uint8).reshape(h, w * bpp).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kinds = np.asarray(filters, np.uint8)
+    pred = np.choose(kinds[:, None].astype(np.intp),
+                     (np.zeros_like(x), a, b, (a + b) >> 1, paeth))
+    raw = np.concatenate([kinds[:, None], ((x - pred) & 0xFF).astype(np.uint8)], axis=1)
+    color_type = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    header = struct.pack(">IIBBBBB", w, h, 8 * img.dtype.itemsize, color_type, 0, 0, 0)
+    chunk = png_io._chunk
+    return (png_io.PNG_SIGNATURE + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), PNG_ZLIB_LEVEL))
+            + chunk(b"IEND", b""))
+
+
+def _view_census_caps(mesh, cams, scale, cfg):
+    """(census, caps) of every view's pinhole render at ``scale`` (what
+    the sparse path rasterizes), as :func:`_census_caps`."""
+    soa = mesh._tri_soa_device(cams, cfg.bin_block)
+    census = []
+    for i in range(len(cams)):
+        b = cams.get_camera_batch([i], image_scale=scale, device=mesh.device)
+        setup = setup_from_soa(soa, b.world_to_cam[0], b.f[0], b.image_width,
+                               b.image_height, cfg.znear)
+        census.append(bin_triangles(setup, cfg, b.image_height, b.image_width,
+                                    return_census=True))
+    census = torch.stack(census).amax(0).tolist()
+    return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
+
+
+def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
+                   plain_every=1):
+    """``determine_minimum_overlapping_images`` with ``device`` at its
+    default (or ``dev`` off the card) on census-sized caps: one raster and
+    one counts launch a view (an overflow raises), the visibility of every
+    ``plain_every``-th view equal to a run of those views through the
+    plain raster and counts, the picks equal to the plain greedy over the
+    dense matrix (built on the host for this check only) and every seen
+    face covered.  Returns the launches."""
+    on = {} if torch.device(dev).type == "cuda" else {"device": dev}
+    cams = MetashapeCameraSet(cameras_file, Path(cameras_file).parent / "images")
+    mesh = TexturedMesh(mesh_file, transform_filename=cameras_file, device=dev)
+    census, caps = _view_census_caps(mesh, cams, scale, RasterConfig())
+    cfg = RasterConfig(caps=caps)
+    mesh.raster_config = cfg
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    chosen = determine_minimum_overlapping_images(
+        mesh_file, cameras_file, Path(cameras_file).parent / "images",
+        aggregate_image_scale=scale, min_observations=1, raster_config=cfg,
+        stats=stats, **on)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    peak = round(torch.cuda.max_memory_allocated() / 1e9, 3) if on_card else None
+    launches = _launches()
+    n = len(cams)
+    want = {"raster_tiles": n * on_card, "face_class_counts": n * on_card,
+            "s_raster": 0, "onehot_class": 0, "face_sums": 0}
+    if launches != want:
+        raise RuntimeError(f"{phase}: launches {launches}, expected {want}")
+    vis = stats["visibility"]
+    sensor = cams.sensors[cams.sensor_IDs[0]]
+    held = list(range(0, n, plain_every))
+    seg = SegmentorCameraSet(cams.get_subset_cameras(held), ImageIDSegmentor(
+        (sensor["image_height"], sensor["image_width"]), len(held)))
+    t0 = time.perf_counter()
+    plain, _ = _plain_index_run(mesh, seg, len(held), {}, aggregate_img_scale=scale,
+                                check_null_image=False)
+    plain_run_s = time.perf_counter() - t0
+    if not _csr_equal(visibility_matrix(plain, 1), vis[:, held]):
+        raise RuntimeError(f"{phase}: the visibility of views {held} differs from "
+                           "the plain run's")
+    dense = vis.toarray()
+    t0 = time.perf_counter()
+    chosen_plain = greedy_set_cover(dense)
+    plain_s = time.perf_counter() - t0
+    del dense
+    if chosen != chosen_plain:
+        raise RuntimeError(f"{phase}: picks {chosen} differ from the plain greedy's "
+                           f"{chosen_plain}")
+    seen = np.diff(vis.indptr) > 0
+    covered = np.asarray(vis[:, chosen].sum(axis=1)).ravel() > 0
+    if (seen & ~covered).any():
+        raise RuntimeError(f"{phase}: {int((seen & ~covered).sum())} seen faces are "
+                           "not covered by the chosen views")
+
+    def view_ms(key):
+        vals = [v[key] for v in stats["views"]]
+        return dict(median=round(statistics.median(vals) * 1e3, 4),
+                    max=round(max(vals) * 1e3, 4))
+
+    _line(phase, views=n, scale=scale, image=[int(round(sensor["image_height"] * scale)),
+                                             int(round(sensor["image_width"] * scale))],
+          census=census, caps=list(caps), launches=launches, overflow=0,
+          wall_s=round(wall, 4), views_per_s=round(n / wall, 3),
+          stages_s={k: round(stats[k], 4) for k in ("load_s", "aggregate_s", "greedy_s")},
+          view_ms={k: view_ms(k) for k in (
+              "segment_s", "upload_s", "remap_s", "pix2face_s", "counts_s",
+              "nonzero_s", "download_s", "host_s")},
+          greedy_plain_s=round(plain_s, 4), n_chosen=len(chosen),
+          seen_faces=stats["seen_faces"], nnz=int(vis.nnz),
+          plain_run_views=len(held), plain_run_s=round(plain_run_s, 4),
+          plain_run_equal=True,
+          picks_equal_plain=True, peak_mem_gb=peak, card=card)
+    return launches
+
+
+def _selection_phase(folder, survey, sensors, dev, card=None, n_views=SELECTION_VIEWS,
+                     scale=SELECTION_SCALE, width=W, height=H):
+    """Phase 10a: ``n_views`` cameras of the bench suite's pattern as a
+    Metashape XML beside phase 5's mesh, selected at ``scale``; then phase
+    8's 20 views at scale 1.0.  Returns the launches of both runs."""
+    cameras_file = Path(folder) / "selection_cameras.xml"
+    _write_cameras(cameras_file, _suite_cameras(n_views=n_views), sensors,
+                   _suite_sensor_ids(n_views), width, height)
+    launches = _selection_run(survey["mesh_file"], cameras_file, scale, dev, card,
+                              plain_every=SELECTION_PLAIN_EVERY)
+    more = _selection_run(survey["mesh_file"], survey["cameras_file"], 1.0, dev, card,
+                          phase="10a_full")
+    return {k: n + more[k] for k, n in launches.items()}
+
+
+def _ortho_image(big, face_labels, dev):
+    """(H, W, 4) uint8 RGBA of the ~10000 px ortho map: a labelled face in
+    its species' colour, the others in the ground's, each shaded by its
+    face id; alpha 0 where no face was hit."""
+    p2f = torch.as_tensor(big["p2f"], device=dev).long()
+    hit = p2f >= 0
+    labels = torch.as_tensor(face_labels, device=dev)[p2f.clamp(min=0)]
+    species = torch.where(hit & torch.isfinite(labels), labels, -1).long()
+    rgb = torch.where((species >= 0).unsqueeze(-1),
+                      torch.as_tensor(SPECIES_RGB, device=dev)[species.clamp(min=0)],
+                      torch.tensor(GROUND_RGB, device=dev))
+    shade = ((p2f * 2654435761) >> 13) & 15
+    rgba = torch.zeros(p2f.shape + (4,), dtype=torch.uint8, device=dev)
+    rgba[..., :3] = torch.where(hit.unsqueeze(-1), rgb - shade.unsqueeze(-1), 0).to(
+        torch.uint8)
+    rgba[..., 3] = hit.to(torch.uint8) * 255
+    return rgba.cpu().numpy()
+
+
+def _ortho_predict_phase(folder, survey, big, dev, card=None):
+    """Phase 10b on phase 9's ~10000 px ortho map: the map coloured by the
+    painted species as an RGBA GeoTIFF (deflate tiles); ``write_chips``
+    (``chip_ortho``) with phase 5's six star polygons as labels; the label
+    chips as the predictions ("a perfect segmentor"), a third of them
+    re-encoded with PNG filter types 3 and 4; ``assemble_ortho_predictions``
+    with ``device`` at its default, bit-equal to the plain numpy assembly
+    and equal to the burned labels on every observed pixel; the raster
+    confusion matrix of the two diagonal; and the vector confusion matrix
+    of phase 9c's labelled polygons against the stars, raster and exact.
+    Returns the launches (none: the phase runs no kernel)."""
+    root = Path(folder)
+    out = root / "ortho_predict"
+    out.mkdir()
+    on = {} if torch.device(dev).type == "cuda" else {"device": dev}
+    _reset_launches()
+    t0 = time.perf_counter()
+    p2f = big["p2f"]
+    h, w = p2f.shape
+    x0, y0, x1, y1 = big["bounds"]
+    grid = Raster(np.broadcast_to(np.uint8(0), (h, w)),
+                  ((x1 - x0) / w, 0.0, x0, 0.0, -(y1 - y0) / h, y1), big["epsg"])
+    rgba = _ortho_image(big, np.load(root / "face_labels.npy"), dev)
+    ortho_file = out / "ortho.tif"
+    write_geotiff(ortho_file, Raster(rgba, grid.transform, grid.epsg),
+                  compression="deflate", tile=CHIP_TILE)
+    ortho_s = time.perf_counter() - t0
+    del rgba
+
+    def burned_labels(h, w):
+        """The labels write_chips burns into the ortho's grid."""
+        labels = VectorData.read_file(survey["labels_file"]).to_crs(big["epsg"])
+        return rasterize_polygons(
+            labels.geometries, [mapping[v] for v in labels.attributes["species"]],
+            grid.bounds, (h, w), background=255).astype(np.uint8)
+
+    chips = out / "chips"
+    t0 = time.perf_counter()
+    mapping = chip_ortho(ortho_file, chips, CHIP_SIZE, CHIP_STRIDE,
+                         label_vector_file=survey["labels_file"], label_column="species")
+    write_chips_s = time.perf_counter() - t0
+    imgs = sorted((chips / "imgs").glob("*.png"))
+    anns = sorted((chips / "anns").glob("*.png"))
+    if [f.name for f in imgs] != [f.name for f in anns] or not anns:
+        raise RuntimeError(f"write_chips: {len(imgs)} image and {len(anns)} label chips")
+    windows = list(create_windows((h, w), CHIP_SIZE, CHIP_STRIDE))
+    chip = read_image_or_numpy(imgs[0])
+    encode_ms = _host_ms(lambda: png_io.encode_png(chip))
+    decode_ms = _decode_times(chip, burned_labels(h, w))
+
+    # predictions: the label chips, every third re-encoded with rows of
+    # filter types 3 and 4 in turn
+    preds = out / "preds"
+    preds.mkdir()
+    chip_decode_ms = {"filters_0_2": [], "filters_3_4": []}
+    for k, f in enumerate(anns):
+        data = f.read_bytes()
+        if k % 3 == 0:
+            label = png_io.decode_png(data)
+            data = encode_png_filtered(label, 3 + np.arange(label.shape[0]) % 2)
+            if not np.array_equal(png_io.decode_png(data), label):
+                raise RuntimeError(f"{f.name}: filter types 3-4 decode to other pixels")
+        (preds / f.name).write_bytes(data)
+        if k < 12:
+            key = "filters_3_4" if k % 3 == 0 else "filters_0_2"
+            chip_decode_ms[key].append(_host_ms(lambda: png_io.decode_png(data), runs=1))
+    decode_ms["label_chip"] = {k: statistics.median(v) for k, v in chip_decode_ms.items()}
+    pred_files = sorted(preds.glob("*"))
+
+    n_classes = len(mapping)
+    st = {}
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    assemble_ortho_predictions(
+        preds, raster_file=ortho_file, num_classes=n_classes,
+        class_savefile=out / "classes.tif", counts_savefile=out / "counts.tif",
+        max_overlapping_tiles=CHIP_MAX_OVERLAP, stats=st, **on)
+    _sync(dev)
+    assemble_s = time.perf_counter() - t0
+    peak = (round(torch.cuda.max_memory_allocated() / 1e9, 3)
+            if torch.device(dev).type == "cuda" else None)
+    launches = _launches()
+    t0 = time.perf_counter()
+    assemble_tiled_predictions_plain(
+        ortho_file, pred_files, n_classes, out / "classes_plain.tif",
+        counts_savefile=out / "counts_plain.tif", max_overlapping_tiles=CHIP_MAX_OVERLAP)
+    plain_s = time.perf_counter() - t0
+    classes, counts = (read_geotiff(out / n) for n in ("classes.tif", "counts.tif"))
+    for name, got in (("classes", classes), ("counts", counts)):
+        want = read_geotiff(out / f"{name}_plain.tif")
+        if not (np.array_equal(got.data, want.data) and got.data.dtype == want.data.dtype
+                and got.transform == want.transform and got.nodata == want.nodata):
+            raise RuntimeError(f"assembled {name} differ from the plain assembly")
+
+    # the assembly against the labels write_chips burned
+    burned = burned_labels(h, w)
+    observed = counts.data > 0
+    wrong = int((classes.data[observed] != burned[observed]).sum())
+    not_nodata = int((classes.data[~observed] != 255).sum())
+    if wrong or not_nodata:
+        raise RuntimeError(f"assembled classes: {wrong} observed pixels off the burned "
+                           f"labels, {not_nodata} unobserved pixels not nodata")
+    write_geotiff(out / "burned.tif", Raster(burned, grid.transform, grid.epsg, 255))
+    t0 = time.perf_counter()
+    cf, names = compute_confusion_matrix_from_geospatial(
+        out / "classes.tif", out / "burned.tif", "species",
+        class_names=list(range(n_classes)), **on)
+    cf_s = time.perf_counter() - t0
+    if (cf - np.diag(np.diag(cf))).any() or not np.trace(cf):
+        raise RuntimeError(f"raster confusion matrix not diagonal: {cf.tolist()}")
+    # phase 9c's labelled stars against the stars
+    labelled = VectorData.read_file(root / "labelled_raster.geojson")
+    predicted = VectorData(labelled.geometries,
+                           {"species": labelled.attributes["predicted_labels"]},
+                           epsg=labelled.epsg)
+    vector = {}
+    for mode in ("raster", "exact"):
+        t0 = time.perf_counter()
+        cf_v, classes_v = cf_from_vector_vector(predicted, survey["labels_file"],
+                                                "species", mode=mode)
+        metrics = compute_comprehensive_metrics(cf_v)
+        vector[mode] = dict(seconds=round(time.perf_counter() - t0, 4), classes=classes_v,
+                            accuracy=metrics["accuracy"],
+                            recall=metrics["class_averaged_recall"],
+                            precision=metrics["class_averaged_precision"])
+    if not all(np.isfinite(v["accuracy"]) and v["accuracy"] > 0 for v in vector.values()):
+        raise RuntimeError(f"vector confusion matrices: {vector}")
+    if any(launches.values()):
+        raise RuntimeError(f"10b launched kernels: {launches}")
+    metrics = compute_comprehensive_metrics(cf)
+    _line("10b", shape=[h, w], ortho_s=round(ortho_s, 4),
+          ortho_bytes=ortho_file.stat().st_size, windows=len(windows), chips=len(anns),
+          mapping=mapping, write_chips_s=round(write_chips_s, 4),
+          encode_ms_per_chip=encode_ms, decode_ms=decode_ms,
+          assemble_s=round(assemble_s, 4),
+          assemble_stages_s={k: round(v, 4) for k, v in st.items() if k.endswith("_s")},
+          counts_bytes=st["counts_bytes"], peak_mem_gb=peak,
+          assemble_plain_s=round(plain_s, 4), bit_equal_plain=True,
+          observed_share=round(float(observed.mean()), 6),
+          labelled_observed=int((observed & (burned != 255)).sum()),
+          raster_cf_s=round(cf_s, 4), raster_cf_diagonal=np.diag(cf).tolist(),
+          raster_accuracy=metrics["accuracy"], vector=vector, launches=launches,
+          card=card)
+    return launches
+
+
+def _decode_times(rgb_chip, labels):
+    """``decode_png`` milliseconds of an RGB chip and of a 2160 x 3840 crop
+    of a label raster (a 4K label image), each as the port writes it (filter
+    type 0) and with rows of filter types 3 and 4 in turn."""
+    out = {}
+    for name, image in (("rgb_chip", rgb_chip), ("label_4k", labels[:2160, :3840])):
+        plain = png_io.encode_png(image)
+        late = encode_png_filtered(image, 3 + np.arange(image.shape[0]) % 2)
+        if not np.array_equal(png_io.decode_png(late), image):
+            raise RuntimeError(f"{name}: filter types 3-4 decode to other pixels")
+        out[name] = dict(shape=list(image.shape),
+                         filters_0=_host_ms(lambda: png_io.decode_png(plain)),
+                         filters_3_4=_host_ms(lambda: png_io.decode_png(late)))
+    return out
+
+
+def _host_ms(fn, runs=3):
+    """Median milliseconds of ``fn()`` on the host's clock."""
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return round(statistics.median(times), 3)
 
 
 if __name__ == "__main__":

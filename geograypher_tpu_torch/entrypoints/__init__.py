@@ -11,6 +11,9 @@ _ENTRYPOINTS = {
     "multiview_detections": "multiview_detections",
     "render_height_masks": "render_height_masks",
     "label_polygons": "label_polygons",
+    "determine_minimum_overlapping_images": "annotation_image_selection",
+    "chip_ortho": "chip_ortho",
+    "assemble_ortho_predictions": "assemble_ortho_predictions",
 }
 
 __all__ = list(_ENTRYPOINTS)

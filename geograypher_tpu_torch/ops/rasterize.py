@@ -505,11 +505,15 @@ def rasterize_and_count(
     """One view's (n_faces, n_classes) float32 pixel counts from prepared
     triangles: the raster (level S first when configured), then the
     counts kernel over the finished pix2face.  With ``return_overflow``
-    also the candidates the tile lists dropped (nonzero = incomplete).
+    also the candidates the tile lists dropped (nonzero = incomplete);
+    without it a nonzero overflow raises (:func:`raise_on_overflow`).
     """
     pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
     counts = project_image_class_counts(pix2face, class_image, n_faces, n_classes)
-    return (counts, binned.overflow) if return_overflow else counts
+    if return_overflow:
+        return counts, binned.overflow
+    raise_on_overflow(binned.overflow, config, "rasterize_and_count")
+    return counts
 
 
 def fused_view_class_counts(
@@ -566,9 +570,24 @@ def rasterize_triangles(
     """One view's (image_h, image_w) int32 pix2face from camera-frame
     (F, 3, 3) triangles; -1 for background.  With ``return_overflow``
     also the candidates the tile lists dropped, a () tensor on the device
-    (nonzero = the pix2face is incomplete): a caller that does not ask
-    for it gets a map whose drops it cannot see, so every caller in the
-    port asks and raises."""
+    (nonzero = the pix2face is incomplete), for a caller that checks many
+    views with one read; without it a nonzero overflow raises
+    (:func:`raise_on_overflow`), so no drop is silent."""
     setup = setup_triangles(tri_verts_cam, f, image_w, image_h, config.znear)
     pix2face, binned = rasterize_setup(setup, config, image_h, image_w)
-    return (pix2face, binned.overflow) if return_overflow else pix2face
+    if return_overflow:
+        return pix2face, binned.overflow
+    raise_on_overflow(binned.overflow, config, "rasterize_triangles")
+    return pix2face
+
+
+def raise_on_overflow(overflow: torch.Tensor, config: RasterConfig, what: str) -> None:
+    """Read a view's overflow (one synchronise) and raise ``ValueError``
+    naming the candidates the tile lists dropped when it is nonzero."""
+    dropped = int(overflow)
+    if dropped:
+        raise ValueError(
+            f"{what}: the tile lists dropped {dropped} candidates at caps "
+            f"{tuple(config.caps)}; the pix2face is incomplete.  Raise the caps "
+            "(a census sizes them), or pass return_overflow=True to read the "
+            "overflow yourself")

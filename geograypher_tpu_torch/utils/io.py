@@ -3,11 +3,11 @@
 
 The codec needs ``zlib``, ``struct`` and numpy only.  It writes 8-bit
 gray, 8-bit RGB / RGBA and 16-bit gray images, non-interlaced, every row
-with filter type 0 (None), and reads those back, as well as rows of
-filter types 1 (Sub) and 2 (Up).  Any other file (filter types 3 and 4,
-palettes, interlacing, other bit depths, other formats) goes to
-``imageio`` when that is importable; without it the read raises and names
-the file.
+with filter type 0 (None), and reads non-interlaced 8- and 16-bit gray,
+gray + alpha, RGB and RGBA files of every filter type (0-4, mixed from
+row to row as PIL and libpng choose them).  Any other file (palettes,
+interlacing, other bit depths, other formats) goes to ``imageio`` when
+that is importable; without it the read raises and names the file.
 """
 
 from __future__ import annotations
@@ -67,11 +67,63 @@ def encode_png(image: np.ndarray, level: int = PNG_ZLIB_LEVEL) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+def _skewed(m: int, w: int, bpp: int):
+    """(flat, view): an int16 buffer of the anti-diagonals of an
+    (m, w, bpp) block and the row above it, and its (m + 1, w, bpp) view
+    in row order.  Pixel (r, x), r = 0 the row above, sits on diagonal
+    ``d = r + x`` at position ``r`` of it, ``flat[d * (m + 1) + r]``, so
+    every diagonal is one contiguous slice; the other positions are 0."""
+    flat = np.zeros(((m + w) * (m + 1), bpp), np.int16)
+    step = flat.strides[0]
+    view = np.lib.stride_tricks.as_strided(
+        flat, shape=(m + 1, w, bpp), strides=((m + 2) * step, (m + 1) * step, 2))
+    return flat, view
+
+
+def _unfilter_wavefront(rows: np.ndarray, filters: np.ndarray, above: np.ndarray):
+    """Reconstruct (m, w, bpp) filtered bytes in place, every row by its own
+    filter type (0-4), given the reconstructed row ``above`` the first.
+
+    A byte depends on the reconstructed bytes of the pixel to its left, the
+    one above and the one above-left, so the pixels of an anti-diagonal
+    (row + column constant) depend only on the two diagonals before it:
+    each diagonal is one vectorised step over the rows (:func:`_skewed`).
+    Positions left of column 0 stay zero, which is what the filters read
+    there.
+    """
+    m, w, bpp = rows.shape
+    n = m + 1  # positions on a diagonal
+    out, out_rows = _skewed(m, w, bpp)
+    resid, resid_rows = _skewed(m, w, bpp)
+    out_rows[0] = above
+    resid_rows[1:] = rows
+    kind = np.concatenate([[0], filters]).astype(np.intp)[:, None]
+    zeros = np.zeros((n, bpp), np.int16)
+    for d in range(1, m + w):
+        lo, hi = max(1, d - w + 1), min(m, d)  # rows on the diagonal
+        a = out[(d - 1) * n + lo:(d - 1) * n + hi + 1]  # left
+        b = out[(d - 1) * n + lo - 1:(d - 1) * n + hi]  # up
+        c = out[(d - 2) * n + lo - 1:(d - 2) * n + hi] if d > 1 else zeros[:hi - lo + 1]
+        ab = a + b
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(ab - 2 * c)
+        paeth = np.where(pa <= np.minimum(pb, pc), a, np.where(pb <= pc, b, c))
+        pred = np.choose(kind[lo:hi + 1], (zeros[:hi - lo + 1], a, b, ab >> 1, paeth))
+        np.bitwise_and(resid[d * n + lo:d * n + hi + 1] + pred, 0xFF,
+                       out=out[d * n + lo:d * n + hi + 1])
+    rows[...] = out_rows[1:]
+
+
 def decode_png(data: bytes) -> Optional[np.ndarray]:
     """The image of a PNG file's bytes, or None when the file uses what
     the codec does not read (a palette, interlacing, a bit depth other
-    than 8 or 16, filter types 3 or 4).  Raises ``ValueError`` for bytes
-    that are not a PNG file at all."""
+    than 8 or 16).  Raises ``ValueError`` for bytes that are not a PNG
+    file at all.
+
+    Rows of filter types 0-2 before the first row of type 3 (Average) or
+    4 (Paeth) decode row-wise (a ``cumsum`` for Sub, a sum with the row
+    above for Up); from that row on, :func:`_unfilter_wavefront` decodes
+    every row by its own type.
+    """
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -97,16 +149,20 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
         raise ValueError("PNG data does not match its header")
     raw = raw.reshape(h, 1 + w * bpp)
     filters = raw[:, 0]
-    if (filters > 2).any():
-        return None
+    if (filters > 4).any():
+        raise ValueError(f"PNG filter type {int(filters.max())} does not exist")
     rows = raw[:, 1:].copy()
-    if filters.any():
-        pixels = rows.reshape(h, w, bpp)
-        for y in np.flatnonzero(filters):
-            if filters[y] == 1:  # Sub: each byte adds the pixel to its left
-                np.cumsum(pixels[y], axis=0, dtype=np.uint8, out=pixels[y])
-            elif y:  # Up: each byte adds the one above (zeros above row 0)
-                rows[y] += rows[y - 1]
+    pixels = rows.reshape(h, w, bpp)
+    late = np.flatnonzero(filters > 2)
+    first_late = int(late[0]) if late.size else h
+    for y in np.flatnonzero(filters[:first_late]):
+        if filters[y] == 1:  # Sub: each byte adds the pixel to its left
+            np.cumsum(pixels[y], axis=0, dtype=np.uint8, out=pixels[y])
+        elif y:  # Up: each byte adds the one above (zeros above row 0)
+            rows[y] += rows[y - 1]
+    if late.size:
+        above = pixels[first_late - 1] if first_late else np.zeros((w, bpp), np.uint8)
+        _unfilter_wavefront(pixels[first_late:], filters[first_late:], above)
     out = rows.view(np.dtype(">u2") if depth == 16 else np.uint8)
     out = out.astype(np.uint16 if depth == 16 else np.uint8)
     return out.reshape(h, w) if channels == 1 else out.reshape(h, w, channels)
@@ -129,8 +185,8 @@ def read_image_or_numpy(filename: PATH_TYPE) -> np.ndarray:
     except ImportError:
         raise ValueError(
             f"cannot read {filename}: the built-in decoder reads non-interlaced "
-            "8/16-bit gray, RGB and RGBA PNG files of filter types 0-2, and "
-            "imageio is not installed for anything else"
+            "8/16-bit gray, gray + alpha, RGB and RGBA PNG files, and imageio "
+            "is not installed for anything else"
         ) from None
     return np.asarray(iio.imread(filename))
 

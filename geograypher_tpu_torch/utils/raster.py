@@ -228,6 +228,16 @@ def read_geotiff(path: PATH_TYPE) -> Raster:
     return Raster(data=img.data, transform=transform, epsg=epsg, nodata=nodata)
 
 
+def read_geotiff_grid(path: PATH_TYPE):
+    """((height, width), transform, epsg) of a GeoTIFF file's first image,
+    from its tags alone: the grid :func:`read_geotiff` would give, without
+    decoding the samples."""
+    tags = tiff.read_tiff_tags(path)
+    h = int(tags[tiff.TAG_HEIGHT][0])
+    transform, epsg, _ = tiff.geo_of_tags(tags, h)
+    return (h, int(tags[tiff.TAG_WIDTH][0])), transform, epsg
+
+
 def write_geotiff(
     path: PATH_TYPE,
     raster: Raster,

@@ -2,20 +2,25 @@
 ``struct``: the port's own in place of the PIL the JAX package reads and
 writes GeoTIFFs with (``geograypher_tpu/utils/raster.py``).
 
-Reader (:func:`read_tiff`): classic TIFF (not BigTIFF) in either byte
-order, the first image of the file, stored in strips or tiles, planar
-configuration 1 (samples interleaved); no compression, deflate (zlib,
-codes 8 and 32946), LZW (5) and PackBits (32773); horizontal predictor 2
-on integer samples; unsigned and signed integers of 8, 16 and 32 bits and
-IEEE floats of 32 and 64 bits; one band, or 3-4 bands of uint8.  Tiles
+Reader (:func:`read_tiff`): classic TIFF and BigTIFF (version 43: 8-byte
+offsets and counts, 20-byte directory entries, the types LONG8, SLONG8
+and IFD8) in either byte order, the first image of the file, stored in
+strips or tiles, planar configuration 1 (samples interleaved); no
+compression, deflate (zlib, codes 8 and 32946), LZW (5) and PackBits
+(32773); horizontal predictor 2 on integer samples and the
+floating-point predictor 3 on float samples (bytes differenced along
+each row, after a shuffle into byte planes, most significant first);
+unsigned and signed integers of 8, 16 and 32 bits and IEEE floats of 32
+and 64 bits; one band, or 3-4 bands of uint8.  The file is mapped, not
+read whole, so :func:`read_tiff_tags` reads a directory alone.  Tiles
 and strips of a file decode in a few threads (``zlib`` releases the
 interpreter lock).
 
-Writer (:func:`write_tiff`): by default what PIL's ``Image.fromarray``
-and ``save`` write for the JAX package, one uncompressed strip with the
-same tags and the same conversions (int16 and float64 as PIL stores
-them, as int32 and float32); optionally deflate, tiles, predictor 2 and
-big-endian order.
+Writer (:func:`write_tiff`): classic TIFF only; by default what PIL's
+``Image.fromarray`` and ``save`` write for the JAX package, one
+uncompressed strip with the same tags and the same conversions (int16 and
+float64 as PIL stores them, as int32 and float32); optionally deflate,
+tiles, predictor 2 and big-endian order.
 
 Both carry the GeoTIFF tags (:func:`geo_tags_of`, :func:`geo_of_tags`): ModelPixelScale
 (33550), ModelTiepoint (33922), ModelTransformation (34264), the
@@ -25,10 +30,12 @@ GeoKeyDirectory (34735) and GDAL_NODATA (42113).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import mmap
+import os
 import struct
 import zlib
-from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,10 +70,12 @@ COMPRESSION_PACKBITS = 32773
 THREADS = 8  # tiles or strips inflated / deflated at once
 DEFLATE_LEVEL = 6
 
-# TIFF field type -> struct code (and size)
+# TIFF field type -> struct code (and size); 16-18 are BigTIFF's LONG8,
+# SLONG8 and IFD8
 _TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h",
-          9: "i", 10: "ii", 11: "f", 12: "d"}
-_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8}
+          9: "i", 10: "ii", 11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8,
+          13: 4, 16: 8, 17: 8, 18: 8}
 # (sample format, bits) -> numpy kind
 _KINDS = {(1, 8): "u1", (1, 16): "u2", (1, 32): "u4", (2, 8): "i1", (2, 16): "i2",
           (2, 32): "i4", (3, 32): "f4", (3, 64): "f8"}
@@ -82,19 +91,50 @@ class TiffImage:
     tags: Dict[int, object]
 
 
-def _read_ifd(buf: bytes, bo: str, offset: int) -> Dict[int, object]:
-    (n,) = struct.unpack_from(bo + "H", buf, offset)
+@dataclasses.dataclass
+class _Layout:
+    """How a file's directory is laid out: classic TIFF (2-byte entry
+    count, 12-byte entries, 4-byte values and offsets) or BigTIFF (8, 20,
+    8)."""
+
+    bo: str
+    count: str = "H"
+    offset: str = "I"
+
+    @property
+    def entry(self) -> int:
+        return 4 + 2 * struct.calcsize(self.offset)
+
+
+def _layout(buf, path) -> Tuple[_Layout, int]:
+    """(the layout, the first directory's offset) of a file's header."""
+    bo = {b"II": "<", b"MM": ">"}.get(bytes(buf[:2]))
+    version = struct.unpack_from(bo + "H", buf, 2)[0] if bo and len(buf) >= 8 else None
+    if version == 42:
+        return _Layout(bo), struct.unpack_from(bo + "I", buf, 4)[0]
+    if version == 43 and len(buf) >= 16:
+        size, zero, first = struct.unpack_from(bo + "HHQ", buf, 4)
+        if size == 8 and zero == 0:
+            return _Layout(bo, "Q", "Q"), first
+    raise ValueError(f"{path} is not a classic TIFF or BigTIFF file")
+
+
+def _read_ifd(buf, lay: _Layout, offset: int) -> Dict[int, object]:
+    bo, inline_size = lay.bo, struct.calcsize(lay.offset)
+    (n,) = struct.unpack_from(bo + lay.count, buf, offset)
+    first = offset + struct.calcsize(lay.count)
     tags = {}
     for k in range(n):
-        tag, typ, count, inline = struct.unpack_from(bo + "HHI4s", buf, offset + 2 + 12 * k)
+        tag, typ, count, inline = struct.unpack_from(
+            f"{bo}HH{lay.offset}{inline_size}s", buf, first + lay.entry * k)
         if typ not in _TYPES:
             continue
         size = _SIZES[typ] * count
-        if size <= 4:
+        if size <= inline_size:
             raw = inline[:size]
         else:
-            (at,) = struct.unpack_from(bo + "I", inline)
-            raw = buf[at:at + size]
+            (at,) = struct.unpack_from(bo + lay.offset, inline)
+            raw = bytes(buf[at:at + size])
         if typ == 2:
             tags[tag] = raw.split(b"\x00")[0].decode("latin-1")
         elif typ in (5, 10):
@@ -167,14 +207,50 @@ def _decompress(raw: bytes, compression: int) -> bytes:
     raise ValueError(f"TIFF compression {compression} is not supported")
 
 
+def _undo_float_predictor(raw: bytes, n_rows: int, width: int, spp: int,
+                          dtype: np.dtype) -> np.ndarray:
+    """(n_rows, width, spp) floats of a block stored with predictor 3:
+    each row's bytes were split into byte planes (most significant
+    first) and then differenced byte by byte with a stride of ``spp``."""
+    size = dtype.itemsize
+    b = np.frombuffer(raw[:n_rows * width * spp * size], np.uint8)
+    b = np.cumsum(b.reshape(n_rows, width * size, spp), axis=1, dtype=np.uint8)
+    planes = b.reshape(n_rows, size, width * spp).transpose(0, 2, 1)
+    big = np.ascontiguousarray(planes).view(">" + dtype.kind + str(size))
+    return big.reshape(n_rows, width, spp).astype(dtype.newbyteorder("="))
+
+
+@contextlib.contextmanager
+def _mapped(path):
+    """The bytes of a file, mapped read-only for the ``with`` block (b""
+    for an empty file, which cannot be mapped)."""
+    with open(path, "rb") as fh:
+        if os.fstat(fh.fileno()).st_size == 0:
+            yield b""
+            return
+        with mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as buf:
+            yield buf
+
+
+def read_tiff_tags(path) -> Dict[int, object]:
+    """The tags of the first image of a TIFF or BigTIFF file, without
+    decoding its samples."""
+    with _mapped(path) as buf:
+        lay, first = _layout(buf, path)
+        return _read_ifd(buf, lay, first)
+
+
 def read_tiff(path) -> TiffImage:
-    """The first image of a TIFF file and its tags (see the module
-    docstring for what is read)."""
-    buf = Path(path).read_bytes()
-    bo = {b"II": "<", b"MM": ">"}.get(buf[:2])
-    if bo is None or struct.unpack_from(bo + "H", buf, 2)[0] != 42:
-        raise ValueError(f"{path} is not a classic TIFF file")
-    tags = _read_ifd(buf, bo, struct.unpack_from(bo + "I", buf, 4)[0])
+    """The first image of a TIFF or BigTIFF file and its tags (see the
+    module docstring for what is read)."""
+    with _mapped(path) as buf:
+        return _read_image(buf, path)
+
+
+def _read_image(buf, path) -> TiffImage:
+    lay, first = _layout(buf, path)
+    bo = lay.bo
+    tags = _read_ifd(buf, lay, first)
     w, h = int(tags[TAG_WIDTH][0]), int(tags[TAG_HEIGHT][0])
     spp = int(tags.get(TAG_SAMPLES, (1,))[0])
     bits = set(tags.get(TAG_BITS, (1,)))
@@ -191,7 +267,9 @@ def read_tiff(path) -> TiffImage:
         raise ValueError("only interleaved samples (PlanarConfiguration 1)")
     compression = int(tags.get(TAG_COMPRESSION, (1,))[0])
     predictor = int(tags.get(TAG_PREDICTOR, (1,))[0])
-    if predictor not in (1, 2) or (predictor == 2 and kind[0] == "f"):
+    is_float = kind[0] == "f"
+    if not (predictor == 1 or (predictor == 2 and not is_float)
+            or (predictor == 3 and is_float)):
         raise ValueError(f"predictor {predictor} on {kind} samples is not supported")
     dtype = np.dtype(bo + kind)
     if TAG_TILE_OFFSETS in tags:
@@ -209,10 +287,13 @@ def read_tiff(path) -> TiffImage:
     def block(k):
         r0, c0 = origins[k]
         n_rows = bh if TAG_TILE_OFFSETS in tags else min(bh, h - r0)
-        raw = _decompress(buf[offsets[k]:offsets[k] + counts[k]], compression)
-        need = n_rows * bw * spp * dtype.itemsize
-        a = np.frombuffer(raw[:need], dtype=dtype).reshape(n_rows, bw, spp)
-        a = a.astype(dtype.newbyteorder("="))
+        raw = _decompress(bytes(buf[offsets[k]:offsets[k] + counts[k]]), compression)
+        if predictor == 3:
+            a = _undo_float_predictor(raw, n_rows, bw, spp, dtype)
+        else:
+            need = n_rows * bw * spp * dtype.itemsize
+            a = np.frombuffer(raw[:need], dtype=dtype).reshape(n_rows, bw, spp)
+            a = a.astype(dtype.newbyteorder("="))
         if predictor == 2:
             a = np.cumsum(a, axis=1, dtype=a.dtype)
         hh, ww = min(n_rows, h - r0), min(bw, w - c0)

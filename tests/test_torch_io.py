@@ -4,13 +4,17 @@ the PLY writer, the distance test that stands in for the raster polygon
 buffer, and the synthetic survey on disk."""
 
 import json
+import struct
+import sys
 import zlib
 
 import cv2
 import imageio.v3 as iio
 import numpy as np
 import pytest
+from PIL import Image
 
+from chip_smoke import encode_png_filtered
 from geograypher_tpu.utils import cache as jcache
 from geograypher_tpu.utils import vector as jvector
 from geograypher_tpu.utils.meshio import load_mesh as jload_mesh
@@ -55,8 +59,8 @@ def test_png_round_trip_and_other_readers(name, tmp_path):
 @pytest.mark.parametrize("name", ["gray8", "rgb8", "gray16", "mask"])
 @pytest.mark.parametrize("png_filter", ["none", "sub", "up", "paeth"])
 def test_png_reads_what_cv2_writes(name, png_filter, tmp_path):
-    """cv2's files at filter types 0, 1 and 2 go through the port's own
-    decoder; a Paeth file is beyond it and goes to imageio."""
+    """cv2's files at filter types 0, 1, 2 and 4 (Paeth) go through the
+    port's own decoder."""
     img = _images()[name]
     flag = {"none": cv2.IMWRITE_PNG_FILTER_NONE, "sub": cv2.IMWRITE_PNG_FILTER_SUB,
             "up": cv2.IMWRITE_PNG_FILTER_UP, "paeth": cv2.IMWRITE_PNG_FILTER_PAETH}
@@ -64,11 +68,88 @@ def test_png_reads_what_cv2_writes(name, png_filter, tmp_path):
     bgr = img[..., ::-1] if img.ndim == 3 else img
     assert cv2.imwrite(str(path), bgr, [cv2.IMWRITE_PNG_FILTER, flag[png_filter]])
     own = tio.decode_png(path.read_bytes())
-    if png_filter == "paeth":
-        assert own is None
-    else:
-        np.testing.assert_array_equal(own, img)
+    np.testing.assert_array_equal(own, img)
     np.testing.assert_array_equal(tio.read_image_or_numpy(path), img)
+
+
+@pytest.fixture
+def no_imageio(monkeypatch):
+    """``import imageio.v3`` raises, as on a machine without imageio."""
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v3", None)
+
+
+def _filter_images():
+    rng = np.random.default_rng(5)
+    images = dict(_images())
+    images["gray_alpha8"] = rng.integers(0, 256, (13, 17, 2), dtype=np.uint8)
+    images["rgb16"] = rng.integers(0, 65536, (12, 9, 3), dtype=np.uint16)
+    images["rgba16"] = rng.integers(0, 65536, (7, 10, 4), dtype=np.uint16)
+    images["gray_alpha16"] = rng.integers(0, 65536, (6, 5, 2), dtype=np.uint16)
+    return images
+
+
+@pytest.mark.parametrize("rows", ["average", "paeth", "mixed"])
+@pytest.mark.parametrize("name", sorted(_filter_images()))
+def test_png_filter_types_3_and_4_decode_as_pil(name, rows, no_imageio, tmp_path):
+    """Rows of filter type 3 (Average) and 4 (Paeth), on every row or mixed
+    with types 0-2 from row to row, in 8 and 16 bits, gray, gray + alpha,
+    RGB and RGBA, decode to the image, as PIL reads the same file, with
+    imageio refused."""
+    img = _filter_images()[name]
+    h = img.shape[0]
+    filters = {"average": np.full(h, 3), "paeth": np.full(h, 4),
+               "mixed": np.random.default_rng(h).integers(0, 5, h)}[rows]
+    path = tmp_path / "f.png"
+    path.write_bytes(encode_png_filtered(img, filters))
+    np.testing.assert_array_equal(tio.read_image_or_numpy(path), img)
+    got = tio.decode_png(path.read_bytes())
+    assert got.dtype == img.dtype
+    with Image.open(path) as pil:
+        pil_img = np.asarray(pil)
+    if img.dtype == np.uint8 or img.ndim == 2:  # PIL holds 16-bit colour as 8 bits
+        np.testing.assert_array_equal(got, pil_img)
+
+
+def _row_filters(data: bytes, row_bytes: int) -> set:
+    """The filter types of a PNG file's rows."""
+    pos, idat = 8, b""
+    while pos < len(data):
+        length, kind = struct.unpack_from(">I4s", data, pos)
+        if kind == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    return set(raw[::1 + row_bytes])
+
+
+@pytest.mark.parametrize("shape", [(540, 384), (96, 77, 3), (40, 33, 4), (1, 300),
+                                   (300, 1)])
+def test_png_pil_and_jax_files_decode_without_imageio(shape, monkeypatch, tmp_path):
+    """PIL picks a filter type for every row (Paeth among them on smooth
+    images); the port reads its files, and the JAX package's
+    ``write_image`` files (imageio over Pillow), as PIL does, with
+    imageio refused."""
+    from geograypher_tpu.utils.io import write_image as jax_write_image
+
+    rng = np.random.default_rng(1)
+    i, j = np.mgrid[:shape[0], :shape[1]]
+    wave = 128 + 100 * np.sin(i / 9) * np.cos(j / 7)
+    img = wave.reshape(shape[:2] + (1,) * (len(shape) - 2)) + rng.integers(0, 3, shape)
+    img = img.astype(np.uint8)
+    Image.fromarray(img).save(tmp_path / "pil.png")
+    jax_write_image(tmp_path / "jax.png", img)
+    monkeypatch.setitem(sys.modules, "imageio", None)
+    monkeypatch.setitem(sys.modules, "imageio.v3", None)
+    for name in ("pil.png", "jax.png"):
+        with Image.open(tmp_path / name) as pil:
+            want = np.asarray(pil)
+        np.testing.assert_array_equal(want, img)
+        np.testing.assert_array_equal(tio.read_image_or_numpy(tmp_path / name), want)
+    if shape[0] > 1 and shape[1] > 1:
+        filters = _row_filters((tmp_path / "pil.png").read_bytes(),
+                               int(np.prod(shape[1:])))
+        assert 4 in filters, filters
 
 
 def test_png_reads_what_imageio_writes(tmp_path):

@@ -531,3 +531,59 @@ def test_ortho_overflow_raises_on_the_card(cuda):
     mesh.raster_config = tr.RasterConfig(caps=tuple(census))
     p2f, _, _ = mesh.ortho_pix2face(resolution_m=0.016, max_pixels=100)
     assert len(plan.tiles) == 9 and (p2f >= 0).mean() > 0.95
+
+
+def test_rasterizers_raise_on_an_unread_overflow_on_the_card(cuda):
+    """No drop is silent on the card: without ``return_overflow`` the
+    public rasterizers read the overflow and raise."""
+    setup = view_setup(cuda)
+    starved = tr.RasterConfig(caps=(2, 2, 2, 2))
+    with pytest.raises(ValueError, match="rasterize_and_count: the tile lists dropped"):
+        tr.rasterize_and_count(setup, torch.zeros((200, 320), dtype=torch.int32,
+                                                  device=cuda),
+                               starved, 200, 320, int(setup.planes.shape[0]), 1)
+
+
+def test_greedy_cover_on_the_card_equals_the_plain_greedy(cuda):
+    """The greedy cover on the card picks what the plain loop picks on
+    seeded matrices with ties and empty rows and columns."""
+    import scipy.sparse
+
+    from geograypher_tpu_torch.entrypoints.annotation_image_selection import (
+        greedy_set_cover,
+        greedy_set_cover_sparse,
+    )
+
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        m = rng.random((int(rng.integers(50, 3000)), int(rng.integers(2, 60)))) < 0.05
+        m[:, 1] = m[:, 0]
+        m[::7] = False
+        assert greedy_set_cover_sparse(scipy.sparse.csr_array(m), cuda) == (
+            greedy_set_cover(m))
+
+
+def test_assembly_on_the_card_equals_the_plain_assembly(cuda, tmp_path):
+    """Chip predictions with 16-way overlap, nodata and saturating uint8
+    counts assemble on the card to the plain numpy files, bit for bit."""
+    from geograypher_tpu_torch.predictors import ortho
+    from geograypher_tpu_torch.utils.io import write_image
+    from geograypher_tpu_torch.utils.raster import Raster, read_geotiff, write_geotiff
+
+    rng = np.random.default_rng(11)
+    write_geotiff(tmp_path / "ortho.tif", Raster(np.zeros((70, 90, 3), np.uint8),
+                                                 (1.0, 0, 5e5, 0, -1.0, 4e6), 32611))
+    files = []
+    for w in ortho.create_windows((70, 90), 40, 10):
+        pred = rng.integers(0, 5, (w["height"], w["width"])).astype(np.uint8)
+        pred[rng.random(pred.shape) < 0.1] = 255
+        files.append(tmp_path / "p" / ortho.get_str_from_window(w, ".png"))
+        write_image(files[-1], pred)
+    for fn, kw, tag in ((ortho.assemble_tiled_predictions, dict(device=cuda), "card"),
+                        (ortho.assemble_tiled_predictions_plain, {}, "plain")):
+        fn(tmp_path / "ortho.tif", files, 5, tmp_path / f"c_{tag}.tif",
+           counts_savefile=tmp_path / f"n_{tag}.tif", **kw)
+    for name in ("c", "n"):
+        a, b = (read_geotiff(tmp_path / f"{name}_{t}.tif").data for t in ("card", "plain"))
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

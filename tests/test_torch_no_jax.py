@@ -4,6 +4,7 @@ networkx, and is not said to have imageio or sklearn), and the port keeps
 its own copies of the host helpers it needs.  Checked in subprocesses,
 because tests/conftest.py imports jax into this one."""
 
+import json
 import os
 import re
 import subprocess
@@ -35,7 +36,7 @@ IMPORT_ALL = REFUSE + r"""
 import importlib, pkgutil
 
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "sklearn", "networkx", "rasterio", "osgeo")
+           "sklearn", "networkx", "rasterio", "osgeo", "matplotlib")
 refuse(*REFUSED)
 import geograypher_tpu_torch
 names = ["chip_smoke"] + [
@@ -53,7 +54,10 @@ for name in ("parallel.pipeline", "parallel.sharding", "meshes.chunked",
              "meshes.sparse", "entrypoints.project_detections",
              "entrypoints.multiview_detections", "utils.tiff", "utils.raster",
              "utils.contours", "utils.boolean_ops", "utils.geospatial",
-             "entrypoints.render_height_masks", "entrypoints.label_polygons"):
+             "entrypoints.render_height_masks", "entrypoints.label_polygons",
+             "utils.profiling", "utils.indexing", "utils.prediction_metrics",
+             "predictors.ortho", "entrypoints.annotation_image_selection",
+             "entrypoints.chip_ortho", "entrypoints.assemble_ortho_predictions"):
     assert "geograypher_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -232,10 +236,11 @@ print("ok")
 # modules refused: a DTM GeoTIFF written and read by the port's own codec,
 # heights above ground, ``render_height_masks``, ``aggregate_images`` with
 # the DTM on the planned route, the orthographic raster untiled and tiled,
-# the raster vector export and ``label_polygons`` in three modes
+# the raster vector export and ``label_polygons`` in three modes; with
+# ``PHASE10`` set, phase 10 after it on the same folder
 PHASE9_PATH = REFUSE + r"""
 REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
-           "imageio", "sklearn", "networkx", "rasterio", "osgeo")
+           "imageio", "sklearn", "networkx", "rasterio", "osgeo", "matplotlib")
 refuse(*REFUSED)
 import tempfile
 from pathlib import Path
@@ -265,9 +270,23 @@ sensors = {0: {"f": 50.0, "image_width": w, "image_height": h},
 with tempfile.TemporaryDirectory() as folder:
     survey = cs._write_survey(Path(folder) / "detections", verts, faces, c2ws, sensors,
                               [0, 1, 0, 1, 0, 3], w, h, phase="8a")
-    launches, row, row_b = cs._phase9(folder, survey, verts,
-                                      cs.RasterConfig(caps=(2048, 512, 256, 256)),
-                                      torch.device("cpu"))
+    launches, row, row_b, big = cs._phase9(folder, survey, verts,
+                                           cs.RasterConfig(caps=(2048, 512, 256, 256)),
+                                           torch.device("cpu"))
+    assert big["p2f"].shape == (409, 409) and big["epsg"] == 32611
+    if PHASE10:
+        # phase 10: image selection over 12 views of the suite's pattern at
+        # scale 0.5 (every 5th view held against the plain run) and the 6
+        # survey views at 1.0; the ortho chipped in 128 px chips at a 64 px
+        # stride, predictions assembled, scored
+        cs.SELECTION_PLAIN_EVERY = 5
+        cs.CHIP_SIZE, cs.CHIP_STRIDE, cs.CHIP_TILE = 128, 64, (64, 64)
+        sel_sensors = {k: sensors[v] for k, v in ((0, 0), (1, 1), (2, 0), (3, 3))}
+        more = cs._selection_phase(folder, survey, sel_sensors, "cpu", n_views=12,
+                                   scale=0.5, width=w, height=h)
+        assert not any(more.values()), more
+        more = cs._ortho_predict_phase(folder, survey, big, "cpu")
+        assert not any(more.values()), more
 # CPU tensors take the plain versions
 assert not any(launches.values()), launches
 assert row["max_abs_err"] == 0 and row["shape"] == [205, 205]
@@ -334,9 +353,18 @@ def test_chip_smoke_detection_path_needs_nothing_of_the_jax_package():
 
 
 def test_chip_smoke_dtm_ortho_polygon_path_needs_nothing_of_the_jax_package():
-    out = run(PHASE9_PATH)
+    out = run("PHASE10 = False\n" + PHASE9_PATH)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_chip_smoke_selection_and_ortho_predict_path_needs_nothing_of_the_jax_package():
+    out = run("PHASE10 = True\n" + PHASE9_PATH)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    phases = [json.loads(ln)["phase"] for ln in lines if ln.startswith("{")]
+    assert {"10a", "10a_full", "10b"} <= set(phases), phases
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -7,9 +7,10 @@ mesh, untiled and tiled (>= 99% of pixels equal, face <-> face swaps
 only), with the same bounds and shape.  The raster vector export and
 ``label_polygons`` (raster mode) are equal to the JAX package's through
 the same pix2face; the exact mode is equal outright.  No capacity drop is
-silent: ``rasterize_triangles`` returns its overflow, and
-``ortho_pix2face`` and ``sharded_render_aggregate`` raise on it, naming
-the tile or view and the caps.
+silent: ``rasterize_triangles`` and ``rasterize_and_count`` return their
+overflow when asked and raise on it otherwise, and ``ortho_pix2face`` and
+``sharded_render_aggregate`` raise on it, naming the tile or view and the
+caps.
 """
 
 import logging
@@ -25,7 +26,9 @@ from geograypher_tpu.utils.vector import VectorData as JaxVectorData
 from geograypher_tpu_torch.meshes.mesh import TexturedMesh
 from geograypher_tpu_torch.ops.rasterize import (
     RasterConfig,
+    rasterize_and_count,
     rasterize_triangles,
+    setup_triangles,
     transform_to_camera,
 )
 from geograypher_tpu_torch.parallel import sharding as tsharding
@@ -147,6 +150,35 @@ def test_rasterize_triangles_returns_its_overflow(scene):
     _, dropped = rasterize_triangles(tri, plan.focal, plan.tile_w, plan.tile_h,
                                      RasterConfig(caps=(2, 2, 2, 2)), return_overflow=True)
     assert int(dropped) > 0
+
+
+def test_rasterizers_raise_on_an_overflow_not_asked_for(scene):
+    """No drop is silent: without ``return_overflow`` a nonzero overflow of
+    ``rasterize_triangles`` or ``rasterize_and_count`` raises, naming the
+    dropped candidates and the caps (the JAX functions return the
+    incomplete map, ROADMAP C4)."""
+    tmesh, _, _ = scene
+    plan = tmesh.ortho_plan(resolution_m=RES)
+    tri = transform_to_camera(plan.tri, plan.tiles[0][2])
+    starved = RasterConfig(caps=(2, 2, 2, 2))
+    _, dropped = rasterize_triangles(tri, plan.focal, plan.tile_w, plan.tile_h, starved,
+                                     return_overflow=True)
+    with pytest.raises(ValueError, match=rf"rasterize_triangles: the tile lists dropped "
+                       rf"{int(dropped)} candidates at caps \(2, 2, 2, 2\)"):
+        rasterize_triangles(tri, plan.focal, plan.tile_w, plan.tile_h, starved)
+    setup = setup_triangles(tri, plan.focal, plan.tile_w, plan.tile_h, starved.znear)
+    classes = torch.zeros((plan.tile_h, plan.tile_w), dtype=torch.int32)
+    n_faces = tri.shape[0]
+    counts, over = rasterize_and_count(setup, classes, starved, plan.tile_h, plan.tile_w,
+                                       n_faces, 1, return_overflow=True)
+    assert int(over) == int(dropped) > 0
+    with pytest.raises(ValueError, match=r"rasterize_and_count: the tile lists dropped"):
+        rasterize_and_count(setup, classes, starved, plan.tile_h, plan.tile_w, n_faces, 1)
+    roomy = RasterConfig(caps=CAPS)
+    np.testing.assert_array_equal(
+        rasterize_and_count(setup, classes, roomy, plan.tile_h, plan.tile_w, n_faces, 1),
+        rasterize_and_count(setup, classes, roomy, plan.tile_h, plan.tile_w, n_faces, 1,
+                            return_overflow=True)[0])
 
 
 def test_sharded_render_aggregate_raises_on_overflow():

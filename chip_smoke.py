@@ -141,7 +141,29 @@ Phases (each prints one line; any failure raises and exits nonzero):
    card bit-equal to the plain numpy assembly and equal to the burned
    labels on every observed pixel, the raster confusion matrix diagonal,
    and phase 9c's labelled polygons scored against the stars (raster and
-   exact), with their stage times.
+   exact), with their stage times;
+11. the last modules of the port, each with its view 0 held bit for bit
+   against the plain versions at zero overflow: ``"11a"``, phase 8's 20
+   views as a COLMAP text export (a SIMPLE_RADIAL sensor per suite sensor,
+   k its k1) parsed by ``COLMAPCameraSet`` (poses within 1e-12), an
+   ``images.txt`` of 1,000 images with 2,000-point rows parsed and timed,
+   and seeded labels aggregated through the COLMAP set and through a
+   ``CameraSet`` of the matrices and k1-only sensors written (view counts
+   and fractions equal off the faces the two sets' rasters swap);
+   ``"11b"``, ``create_undercanopy_survey`` of 10 stations of 2688 x 5376
+   panoramas and 1344 px rig members, the rig cameras, ``LookUpSegmentor``
+   and aggregation (every seen face's label recovered, most faces seen,
+   two canopy classes; the survey's renders counted apart from the
+   aggregation's launches); ``"11c"``, ``render_labels(make_composites=True,
+   vis=True)`` for 4 views of phase 5's survey with PNG raw images (each
+   composite equal to the plain one), ``visualize`` on the 999,698-face mesh
+   with the HTML export and a screenshot at the caps its own census sizes
+   (its value map the ortho kernel's pix2face, held against the float64
+   oracle); ``"11d"``,
+   ``rasterize_batch`` over phase 3's views equal to one
+   ``rasterize_triangles`` a view, and ``determine_minimum_overlapping_images``
+   on 10a's cameras with no ``raster_config`` picking 10a's picks at
+   10a's census caps.
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -181,9 +203,11 @@ import numpy as np
 import scipy.sparse
 import torch
 
+from geograypher_tpu_torch.cameras.colmap import COLMAPCameraSet
 from geograypher_tpu_torch.cameras.core import CameraSet, project_points
 from geograypher_tpu_torch.cameras.distortion import remap_image, remap_image_torch
 from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
+from geograypher_tpu_torch.cameras.rig import create_rig_cameras_from_equirectangular
 from geograypher_tpu_torch.cameras.segmentor_set import SegmentorCameraSet
 from geograypher_tpu_torch.entrypoints.aggregate_images import aggregate_images
 from geograypher_tpu_torch.entrypoints.annotation_image_selection import (
@@ -200,6 +224,7 @@ from geograypher_tpu_torch.entrypoints.multiview_detections import multiview_det
 from geograypher_tpu_torch.entrypoints.project_detections import project_detections
 from geograypher_tpu_torch.entrypoints.render_height_masks import render_height_masks
 from geograypher_tpu_torch.entrypoints.render_labels import render_labels
+from geograypher_tpu_torch.entrypoints.visualize import visualize
 from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.meshes import chunked, sparse
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
@@ -208,6 +233,7 @@ from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
 from geograypher_tpu_torch.ops.aggregate import (
     accumulate_view,
     finalize_aggregation,
+    find_argmax_nonzero_value,
     init_aggregation,
     project_image_to_faces,
     render_texture,
@@ -218,6 +244,7 @@ from geograypher_tpu_torch.ops.rasterize import (
     bin_triangles,
     binned_face_lists,
     fused_view_class_counts,
+    rasterize_batch,
     rasterize_setup,
     rasterize_triangles,
     setup_from_soa,
@@ -225,6 +252,7 @@ from geograypher_tpu_torch.ops.rasterize import (
     transform_to_camera,
 )
 from geograypher_tpu_torch.parallel import pipeline, planner, sharding
+from geograypher_tpu_torch.parallel.planner import census_caps, census_config_of
 from geograypher_tpu_torch.ops.raycast import clip_line_segments
 from geograypher_tpu_torch.predictors.ortho import (
     assemble_tiled_predictions_plain,
@@ -232,6 +260,7 @@ from geograypher_tpu_torch.predictors.ortho import (
 )
 from geograypher_tpu_torch.predictors.segmentors import (
     ImageIDSegmentor,
+    LookUpSegmentor,
     RegionDetectionSegmentor,
     TabularRectangleSegmentor,
 )
@@ -239,6 +268,7 @@ from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import PinnedUpload
 from geograypher_tpu_torch.utils.exact_geometry import polygon_intersection_area
 from geograypher_tpu_torch.utils.example_data import (
+    create_undercanopy_survey,
     local_to_ecef_frame,
     make_metashape_xml,
 )
@@ -264,6 +294,7 @@ from geograypher_tpu_torch.utils.prediction_metrics import (
 )
 from geograypher_tpu_torch.utils.raster import Raster, read_geotiff, write_geotiff
 from geograypher_tpu_torch.utils.vector import Polygon, VectorData, rasterize_polygons
+from geograypher_tpu_torch.utils.visualization import composite_to_uint8, create_composite
 
 N_CLASSES = 10
 H, W = 2160, 3840
@@ -1215,23 +1246,42 @@ def main():
             folder, survey_8, verts, RasterConfig(caps=caps_d), dev, card=smi)
         # -- phase 10: image selection; ortho chips, assembly and metrics ------
         t10 = time.perf_counter()
-        launches_10 = _selection_phase(folder, survey_8, sensors, dev, card=smi)
+        picks = {}
+        launches_10 = _selection_phase(folder, survey_8, sensors, dev, card=smi,
+                                       picks=picks)
         _ortho_predict_phase(folder, survey_8, big, dev, card=smi)
         del big
         _line("10", seconds=round(time.perf_counter() - t10, 3), launches=launches_10)
+        # -- phase 11: COLMAP, the 360 rig, composites and viewers,
+        # rasterize_batch and selection at its default caps -------------------
+        t11 = time.perf_counter()
+        launches_11 = [
+            _colmap_phase(folder, mesh, sensors, dev, card=smi),
+            _rig_phase(folder, dev, card=smi),
+            _composite_phase(folder, survey, c2ws, sensors, sensor_ids, caps_r, dev,
+                             card=smi),
+            _batch_phase(mesh, cams, cfg, caps_r, dict(
+                mesh_file=survey_8["mesh_file"],
+                cameras_file=Path(folder) / "selection_cameras.xml"), picks["10a"], dev,
+                card=smi),
+        ]
+        launches_11 = {name: sum(row[name] for row in launches_11)
+                       for name in launches_11[0]}
+        _line("11", seconds=round(time.perf_counter() - t11, 3), launches=launches_11)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
-    # the kernels' launches on phases 7, 7c, 8, 9 and 10's paths
+    # the kernels' launches on phases 7, 7c, 8, 9, 10 and 11's paths
     later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
              + launches_7s[name] + launches_8[name] + launches_9[name]
-             + launches_10[name] for name in launches_7}
+             + launches_10[name] + launches_11[name] for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
     # level-S path, phase 5's two entry points, phase 6's planned route,
     # phase 6m's first means run, phase 7's main run, phase 7c's chunked
-    # aggregation, chunked render and one-device sharded run, and phase 8's
-    # project_detections); times and bounds are the kernel-vs-plain
-    # views at the main path's configuration (phase 2's first two views;
-    # level S: its two views at the S configuration; face_sums: view 0)
+    # aggregation, chunked render and one-device sharded run, phase 8's
+    # project_detections and the paths of phases 9-11); times and bounds
+    # are the kernel-vs-plain views at the main path's configuration
+    # (phase 2's first two views; level S: its two views at the S
+    # configuration; face_sums: view 0)
     def mean(rs, key):
         values = [r[key] for r in rs]
         return None if None in values else statistics.mean(values)
@@ -2938,9 +2988,10 @@ def _dtm_phase(folder, survey, verts, cfg, dev, card=None):
 
 
 def _ortho_caps(mesh, plan):
-    """Caps from the census of every tile of an orthographic plan."""
+    """Caps from the census of every tile of an orthographic plan, by the
+    planner's rule (``census_caps``)."""
     census = mesh.ortho_raster_census(plan, RasterConfig())
-    return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
+    return census, census_caps(census, RasterConfig()).caps
 
 
 def _hole_mask(p2f):
@@ -3284,36 +3335,22 @@ def encode_png_filtered(image, filters) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def _view_census_caps(mesh, cams, scale, cfg):
-    """(census, caps) of every view's pinhole render at ``scale`` (what
-    the sparse path rasterizes), as :func:`_census_caps`."""
-    soa = mesh._tri_soa_device(cams, cfg.bin_block)
-    census = []
-    for i in range(len(cams)):
-        b = cams.get_camera_batch([i], image_scale=scale, device=mesh.device)
-        setup = setup_from_soa(soa, b.world_to_cam[0], b.f[0], b.image_width,
-                               b.image_height, cfg.znear)
-        census.append(bin_triangles(setup, cfg, b.image_height, b.image_width,
-                                    return_census=True))
-    census = torch.stack(census).amax(0).tolist()
-    return census, tuple(int(math.ceil(m * CAP_MARGIN)) + 8 for m in census)
-
-
 def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
-                   plain_every=1):
+                   plain_every=1, picks=None):
     """``determine_minimum_overlapping_images`` with ``device`` at its
     default (or ``dev`` off the card) on census-sized caps: one raster and
     one counts launch a view (an overflow raises), the visibility of every
     ``plain_every``-th view equal to a run of those views through the
     plain raster and counts, the picks equal to the plain greedy over the
     dense matrix (built on the host for this check only) and every seen
-    face covered.  Returns the launches."""
+    face covered.  Returns the launches; ``picks``, when given, gets the
+    picks and the caps under the phase's name."""
     on = {} if torch.device(dev).type == "cuda" else {"device": dev}
     cams = MetashapeCameraSet(cameras_file, Path(cameras_file).parent / "images")
     mesh = TexturedMesh(mesh_file, transform_filename=cameras_file, device=dev)
-    census, caps = _view_census_caps(mesh, cams, scale, RasterConfig())
-    cfg = RasterConfig(caps=caps)
-    mesh.raster_config = cfg
+    census = mesh.view_raster_census(cams, scale)
+    cfg = mesh.raster_config = census_caps(census, mesh.raster_config)
+    caps = cfg.caps
     on_card = torch.device(dev).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3354,6 +3391,8 @@ def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
     if chosen != chosen_plain:
         raise RuntimeError(f"{phase}: picks {chosen} differ from the plain greedy's "
                            f"{chosen_plain}")
+    if picks is not None:
+        picks[phase] = (chosen, tuple(caps))
     seen = np.diff(vis.indptr) > 0
     covered = np.asarray(vis[:, chosen].sum(axis=1)).ravel() > 0
     if (seen & ~covered).any():
@@ -3382,17 +3421,18 @@ def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
 
 
 def _selection_phase(folder, survey, sensors, dev, card=None, n_views=SELECTION_VIEWS,
-                     scale=SELECTION_SCALE, width=W, height=H):
+                     scale=SELECTION_SCALE, width=W, height=H, picks=None):
     """Phase 10a: ``n_views`` cameras of the bench suite's pattern as a
     Metashape XML beside phase 5's mesh, selected at ``scale``; then phase
-    8's 20 views at scale 1.0.  Returns the launches of both runs."""
+    8's 20 views at scale 1.0.  Returns the launches of both runs
+    (``picks``: see :func:`_selection_run`)."""
     cameras_file = Path(folder) / "selection_cameras.xml"
     _write_cameras(cameras_file, _suite_cameras(n_views=n_views), sensors,
                    _suite_sensor_ids(n_views), width, height)
     launches = _selection_run(survey["mesh_file"], cameras_file, scale, dev, card,
-                              plain_every=SELECTION_PLAIN_EVERY)
+                              plain_every=SELECTION_PLAIN_EVERY, picks=picks)
     more = _selection_run(survey["mesh_file"], survey["cameras_file"], 1.0, dev, card,
-                          phase="10a_full")
+                          phase="10a_full", picks=picks)
     return {k: n + more[k] for k, n in launches.items()}
 
 
@@ -3587,6 +3627,458 @@ def _host_ms(fn, runs=3):
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return round(statistics.median(times), 3)
+
+
+# -- phase 11: COLMAP and the 360 rig, composites and viewers, rasterize_batch,
+# selection at its default caps ------------------------------------------------
+
+COLMAP_BIG_IMAGES = 1000  # a real export's images.txt: 1,000 images ...
+COLMAP_BIG_POINTS = 2000  # ... of 2,000 keypoints each
+COLMAP_POSE_ATOL = 1e-12
+RIG_STATIONS = 10  # cut from a walk's dozens of stations
+RIG_SENSOR = 1344  # a 90 deg member keeps the 5.6K panorama's angular resolution
+RIG_PANO = (2688, 5376)  # a GoPro MAX 5.6K equirectangular capture
+COMPOSITE_VIEWS = 4
+
+
+def _quaternion_wxyz(rot):
+    """A rotation matrix's unit quaternion (w, x, y, z), w >= 0."""
+    m = np.asarray(rot, np.float64)
+    # Shepperd's method: divide by the largest component, so none is the
+    # square root of a cancellation (~1e-8 where it should be 0)
+    t = np.trace(m)
+    k = int(np.argmax([t, m[0, 0], m[1, 1], m[2, 2]]))
+    if k == 0:
+        s = 2 * np.sqrt(1 + t)
+        q = [s / 4, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s]
+    elif k == 1:
+        s = 2 * np.sqrt(1 + m[0, 0] - m[1, 1] - m[2, 2])
+        q = [(m[2, 1] - m[1, 2]) / s, s / 4, (m[0, 1] + m[1, 0]) / s, (m[0, 2] + m[2, 0]) / s]
+    elif k == 2:
+        s = 2 * np.sqrt(1 - m[0, 0] + m[1, 1] - m[2, 2])
+        q = [(m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, s / 4, (m[1, 2] + m[2, 1]) / s]
+    else:
+        s = 2 * np.sqrt(1 - m[0, 0] - m[1, 1] + m[2, 2])
+        q = [(m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s, (m[1, 2] + m[2, 1]) / s, s / 4]
+    q = np.array(q) * (1.0 if q[0] >= 0 else -1.0)
+    return q / np.linalg.norm(q)
+
+
+def _write_colmap(folder, c2ws, sensors, sensor_ids, width, height, points_rows,
+                  images_name="images.txt"):
+    """A COLMAP text export as COLMAP writes it (17 significant digits):
+    ``cameras.txt`` with one SIMPLE_RADIAL sensor per sensor of ``sensors``
+    (id + 1; its ``k1``, 0 without distortion) and ``images_name`` with the
+    world -> camera poses of ``c2ws``, image ``k``'s POINTS2D row
+    ``points_rows[k % len(points_rows)]`` ("" for no points)."""
+    folder = Path(folder)
+    folder.mkdir(parents=True, exist_ok=True)
+    cams = ["# Camera list with one line of data per camera:",
+            "#   CAMERA_ID, MODEL, WIDTH, HEIGHT, PARAMS[]",
+            f"# Number of cameras: {len(sensors)}"]
+    for sid in sorted(sensors):
+        s = sensors[sid]
+        k1 = (s.get("distortion_params") or {}).get("k1", 0.0)
+        cams.append(f"{sid + 1} SIMPLE_RADIAL {width} {height} {s['f']!r} "
+                    f"{width / 2 + s.get('cx', 0.0)!r} {height / 2 + s.get('cy', 0.0)!r} "
+                    f"{k1!r}")
+    (folder / "cameras.txt").write_text("\n".join(cams) + "\n")
+    lines = ["# Image list with two lines of data per image:",
+             "#   IMAGE_ID, QW, QX, QY, QZ, TX, TY, TZ, CAMERA_ID, NAME",
+             "#   POINTS2D[] as (X, Y, POINT3D_ID)",
+             f"# Number of images: {len(c2ws)}, mean observations per image: 1"]
+    for k, c2w in enumerate(c2ws):
+        w2c = np.linalg.inv(c2w)
+        values = " ".join(f"{v:.17g}" for v in (*_quaternion_wxyz(w2c[:3, :3]),
+                                                 *w2c[:3, 3]))
+        lines.append(f"{k + 1} {values} {sensor_ids[k] + 1} view_{k:04d}.png")
+        lines.append(points_rows[k % len(points_rows)])
+    (folder / images_name).write_text("\n".join(lines) + "\n")
+    return folder / "cameras.txt", folder / images_name
+
+
+def _points_row(rng, n, width, height):
+    """A POINTS2D row of ``n`` seeded keypoints (X Y POINT3D_ID)."""
+    xy = rng.random((n, 2)) * (width, height)
+    ids = rng.integers(-1, 10 ** 6, n)
+    return " ".join(f"{x:.6f} {y:.6f} {i}" for (x, y), i in zip(xy, ids))
+
+
+def _lens_setup(mesh, cams, i, cfg, h, w):
+    """View ``i``'s triangle setup in the lens model the aggregation
+    rasterizes it in (distorted space for a sensor with distortion)."""
+    b = cams.get_camera_batch([i], device=mesh.device)
+    use_dist = mesh._resolve_distortion(cams, i, None)
+    return setup_from_soa(
+        mesh._tri_soa_device(cams, cfg.bin_block), b.world_to_cam[0], b.f[0], w, h,
+        cfg.znear, distortion=(b.distortion[0], b.cx[0], b.cy[0]) if use_dist else None)
+
+
+def _held_vs_plain(name, mesh, cams, i, cfg, scale=1.0, use_dist=False, cls=None,
+                   n_classes=None):
+    """View ``i``'s raster kernel (and with ``cls`` the counts kernel)
+    against the plain versions, bit for bit, at zero overflow.  Returns
+    the kernel's pix2face."""
+    batch = cams.get_camera_batch([i], image_scale=scale, device=mesh.device)
+    h, w = batch.image_height, batch.image_width
+    setup = setup_from_soa(
+        mesh._tri_soa_device(cams, cfg.bin_block), batch.world_to_cam[0], batch.f[0],
+        w, h, cfg.znear,
+        distortion=(batch.distortion[0], batch.cx[0], batch.cy[0]) if use_dist else None)
+    binned = bin_triangles(setup, cfg, h, w)
+    cand, counts = binned_face_lists(binned, cfg)
+    planes = setup.planes.contiguous()
+    p2f = raster_tiles.raster_tiles(planes, setup.bbox, cand, counts, cfg, h, w)
+    plain = raster_tiles.raster_tiles_plain(planes, cand, counts, cfg, h, w)
+    if int(binned.overflow) or not torch.equal(p2f, plain):
+        raise RuntimeError(f"{name} view {i}: overflow {int(binned.overflow)}, "
+                           f"{int((p2f != plain).sum())} pixels off the plain raster")
+    if cls is not None:
+        n_faces = planes.shape[0]
+        got = face_counts.face_class_counts(p2f, cls, n_faces, n_classes)
+        want = face_counts.face_class_counts_plain(p2f, cls, n_faces, n_classes)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{name} view {i}: counts kernel vs plain differ by "
+                               f"{int((got - want).abs().sum())}")
+    return p2f
+
+
+def _colmap_phase(folder, mesh, sensors, dev, card=None, n_views=PIPELINE_VIEWS,
+                  width=W, height=H, n_big=COLMAP_BIG_IMAGES, n_points=COLMAP_BIG_POINTS):
+    """Phase 11a: the bench suite's ``n_views`` views as a COLMAP text export
+    (a SIMPLE_RADIAL sensor per suite sensor, k the suite's k1), parsed by
+    ``COLMAPCameraSet`` (poses within ``COLMAP_POSE_ATOL``), a real export's
+    ``images.txt`` of ``n_big`` images with ``n_points``-point rows parsed
+    and timed, and the views' seeded labels aggregated through the COLMAP
+    set and through a ``CameraSet`` of the matrices and k1-only sensors the
+    export was written from: view 0's pix2face by the knife-edge contract
+    between the two, view counts and summed fractions equal off the faces
+    the two sets' rasters swap.  Returns the launches of both runs."""
+    folder = Path(folder) / "colmap"
+    rng = np.random.default_rng(11)
+    c2ws = _suite_cameras(n_views=n_views)
+    ids = _suite_sensor_ids(n_views)
+    k1_sensors = {sid: {**{k: v for k, v in s.items() if k != "distortion_params"},
+                        "distortion_params": {"k1": float(
+                            (s.get("distortion_params") or {}).get("k1", 0.0))}}
+                  for sid, s in sensors.items()}
+    rows = ["", _points_row(rng, 40, width, height)]
+    t0 = time.perf_counter()
+    cameras_txt, images_txt = _write_colmap(folder, c2ws, sensors, ids, width, height,
+                                            rows)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    colmap = COLMAPCameraSet(cameras_txt, images_txt, image_folder=folder / "images")
+    parse_s = time.perf_counter() - t0
+    pose_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(colmap.cam_to_world_transforms, c2ws))
+    if len(colmap) != n_views or pose_err > COLMAP_POSE_ATOL:
+        raise RuntimeError(f"11a: {len(colmap)} views parsed, pose error {pose_err}")
+    if colmap.sensors != {sid + 1: s for sid, s in k1_sensors.items()}:
+        raise RuntimeError(f"11a: sensors {colmap.sensors} against {k1_sensors}")
+    # a real export's size: the POINTS2D rows are skipped unparsed
+    big_c2ws = _suite_cameras(n_views=n_big)
+    _, big_txt = _write_colmap(folder, big_c2ws, sensors, _suite_sensor_ids(n_big),
+                               width, height, [_points_row(rng, n_points, width, height)],
+                               images_name="images_big.txt")
+    t0 = time.perf_counter()
+    big = COLMAPCameraSet(cameras_txt, big_txt)
+    big_parse_s = time.perf_counter() - t0
+    big_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(big.cam_to_world_transforms, big_c2ws))
+    if len(big) != n_big or big_err > COLMAP_POSE_ATOL:
+        raise RuntimeError(f"11a: the big export parsed {len(big)} views, pose error "
+                           f"{big_err}")
+    # the aggregation through both sets, on the same seeded labels
+    names = [f.name for f in colmap.image_filenames]
+    labels = rng.integers(0, N_CLASSES, (n_views, height, width), dtype=np.int8)
+    reference = CameraSet(c2ws, {sid + 1: s for sid, s in k1_sensors.items()},
+                          image_filenames=colmap.image_filenames,
+                          sensor_IDs=[sid + 1 for sid in ids])
+    runs = {}
+    launches = {}
+    for key, cams in (("colmap", colmap), ("matrices", reference)):
+        seg = SegmentorCameraSet(cams, LabelSegmentor(labels, N_CLASSES, names))
+        _reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        avg, info = mesh.aggregate_projected_images(seg)
+        _sync(dev)
+        runs[key] = (avg, info, time.perf_counter() - t0)
+        for name, n in _launches().items():
+            launches[name] = launches.get(name, 0) + n
+    on_card = torch.device(dev).type == "cuda"
+    want = n_views * on_card
+    if launches["raster_tiles"] < 2 * want or launches["face_class_counts"] < 2 * want:
+        raise RuntimeError(f"11a: launches {launches} for 2 x {n_views} views")
+    # the two sets' rasters in the aggregation's lens model, view by view, at
+    # caps from their census
+    sets = (colmap, reference)
+    cfg = census_config_of(mesh.raster_config)
+    census = torch.stack([
+        bin_triangles(_lens_setup(mesh, cams, i, cfg, height, width), cfg, height, width,
+                      return_census=True)
+        for cams in sets for i in range(n_views)]).amax(0).tolist()
+    cfg = census_caps(census, cfg)
+    swapped = torch.zeros(mesh.n_faces + 1, dtype=torch.bool, device=dev)
+    differ = 0
+    for i in range(n_views):
+        p2f = []
+        for cams in sets:
+            got, binned = rasterize_setup(_lens_setup(mesh, cams, i, cfg, height, width),
+                                          cfg, height, width)
+            if int(binned.overflow):
+                raise RuntimeError(f"11a view {i}: census caps {cfg.caps} overflow")
+            p2f.append(got)
+        agree, bg = _knife_edge(p2f[0], p2f[1])
+        if agree < ORACLE_MIN_AGREE or bg:
+            raise RuntimeError(f"11a view {i}: COLMAP vs matrices agree {agree}, {bg} "
+                               "face vs background")
+        d = p2f[0] != p2f[1]
+        differ += int(d.sum())
+        swapped[p2f[0][d].long()] = True
+        swapped[p2f[1][d].long()] = True
+        if i == 0:
+            chain0 = p2f[0]
+    view0 = _held_vs_plain("11a", mesh, colmap, 0, cfg,
+                           use_dist=mesh._resolve_distortion(colmap, 0, None),
+                           cls=torch.as_tensor(labels[0], dtype=torch.int32, device=dev),
+                           n_classes=N_CLASSES)
+    if not torch.equal(view0, chain0):
+        raise RuntimeError("11a: view 0's kernel raster is not the chain's")
+    keep = ~swapped[: mesh.n_faces].cpu().numpy()
+    (avg_c, info_c, s_c), (avg_m, info_m, s_m) = runs["colmap"], runs["matrices"]
+    for key in ("projection_counts", "summed_projections"):
+        if not np.array_equal(info_c[key][keep], info_m[key][keep]):
+            raise RuntimeError(f"11a: {key} of the COLMAP set differ off the swapped faces")
+    seen = info_c["projection_counts"] > 0
+    if seen.mean() <= 0.5 or not np.isfinite(avg_c[seen]).all():
+        raise RuntimeError(f"11a: {seen.mean()} of the faces seen")
+    _line("11a", views=n_views, image=[height, width], sensors=len(colmap.sensors),
+          pose_max_err=pose_err, write_s=round(write_s, 4), parse_s=round(parse_s, 5),
+          big=dict(images=n_big, points_per_image=n_points,
+                   bytes=big_txt.stat().st_size, parse_s=round(big_parse_s, 4),
+                   views_per_s=round(n_big / big_parse_s, 1), pose_max_err=big_err),
+          aggregate_s=dict(colmap=round(s_c, 4), matrices=round(s_m, 4)),
+          views_per_s=round(n_views / s_c, 3), pixels_differ=differ,
+          swapped_faces=int((~keep).sum()), seen_frac=round(float(seen.mean()), 6),
+          view0_equal_plain=True, overflow=0, launches=launches, card=card)
+    return launches
+
+
+def _rig_phase(folder, dev, card=None, n_stations=RIG_STATIONS, sensor=RIG_SENSOR,
+               pano=RIG_PANO):
+    """Phase 11b: ``create_undercanopy_survey`` with ``n_stations`` 360
+    stations of ``pano`` panoramas and rig members of ``sensor`` px (its
+    renders at the caps of its own census), then
+    ``create_rig_cameras_from_equirectangular``, ``LookUpSegmentor`` and
+    aggregation at caps from the rig views' census:
+    every seen face's label recovered, more than half the faces seen, two
+    canopy classes or more (``tests/test_rig_e2e.py``'s checks).  Returns
+    the aggregation's launches (the survey's renders are printed apart:
+    they make the test data)."""
+    stats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    survey = create_undercanopy_survey(Path(folder) / "undercanopy", n_stations=n_stations,
+                                       sensor=sensor, pano_size=pano, device=dev,
+                                       stats=stats)
+    build_s = time.perf_counter() - t0
+    survey_launches = _launches()
+    rig = create_rig_cameras_from_equirectangular(
+        camera_file=survey["cameras_file"], original_images=survey["equirect_folder"],
+        perspective_images=survey["prediction_folder"], rig_camera=survey["rig_camera"],
+        rig_orientations=survey["rig_orientations"],
+        perspective_filename_format_str=survey["format_str"])
+    mesh = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                        device=dev)
+    census = mesh.view_raster_census(rig, 1.0)
+    cfg = mesh.raster_config = census_caps(census, mesh.raster_config)
+    caps = cfg.caps
+    seg = SegmentorCameraSet(rig, LookUpSegmentor(
+        survey["prediction_folder"], survey["prediction_folder"], survey["n_classes"]))
+    _reset_launches()
+    _sync(dev)
+    t0 = time.perf_counter()
+    averaged, _ = mesh.aggregate_projected_images(seg)
+    _sync(dev)
+    aggregate_s = time.perf_counter() - t0
+    launches = _launches()
+    n_views = n_stations * len(survey["rig_orientations"])
+    if len(rig) != n_views:
+        raise RuntimeError(f"11b: {len(rig)} rig views for {n_views}")
+    want = n_views * (torch.device(dev).type == "cuda")
+    if survey_launches["raster_tiles"] < want:
+        raise RuntimeError(f"11b: survey launches {survey_launches} for {n_views} views")
+    if launches["raster_tiles"] < want or launches["face_class_counts"] < want:
+        raise RuntimeError(f"11b: launches {launches} for {n_views} views")
+    face_classes = find_argmax_nonzero_value(torch.as_tensor(averaged)).numpy()
+    truth = survey["face_labels"].astype(float)
+    seen = np.isfinite(face_classes)
+    accuracy = float(np.mean(face_classes[seen] == truth[seen]))
+    observed = sorted(set(np.unique(face_classes[seen]).astype(int))
+                      & set(range(1, survey["n_classes"])))
+    if seen.sum() <= 0.5 * len(truth) or accuracy != 1.0 or len(observed) < 2:
+        raise RuntimeError(f"11b: {int(seen.sum())} of {len(truth)} faces seen, accuracy "
+                           f"{accuracy}, canopy classes {observed}")
+    label0 = read_image_or_numpy(survey["prediction_folder"] / rig.image_filenames[0].name)
+    _held_vs_plain("11b", mesh, rig, 0, cfg, use_dist=False,
+                   cls=torch.as_tensor(np.where(label0 == 255, -1, label0).astype(np.int32),
+                                       device=dev),
+                   n_classes=survey["n_classes"])
+    _line("11b", stations=n_stations, views=n_views, sensor=sensor, pano=list(pano),
+          faces=mesh.n_faces, survey_caps=list(stats["caps"]), census=census,
+          caps=list(caps),
+          resample_s=[round(t, 4) for t in stats["resample_s"]],
+          resample_s_mean=round(statistics.mean(stats["resample_s"]), 4),
+          write_s=round(stats["write_s"], 4), render_s=round(stats["render_s"], 4),
+          build_s=round(build_s, 4), aggregate_s=round(aggregate_s, 4),
+          views_per_s=round(n_views / aggregate_s, 3), seen_faces=int(seen.sum()),
+          accuracy=accuracy, canopy_classes=observed, view0_equal_plain=True,
+          overflow=0, survey_launches=survey_launches, launches=launches, card=card)
+    return launches
+
+
+def _composite_phase(folder, survey, c2ws, sensors, sensor_ids, caps_r, dev, card=None,
+                     n_views=COMPOSITE_VIEWS, width=W, height=H, res_m=None):
+    """Phase 11c: ``render_labels(make_composites=True, vis=True)`` on phase
+    5's mesh and labels for ``n_views`` views with PNG raw images (each
+    composite equal to the plain composite of its mask and image), then
+    ``visualize`` on the same mesh with the HTML export and a screenshot:
+    with the faces' ids as the texture its value map is the ortho
+    pix2face, held against the float64 oracle as phase 9b holds it.
+    Returns the launches."""
+    folder = Path(folder) / "composites"
+    rng = np.random.default_rng(12)
+    names = [f"view_{k:02d}.png" for k in range(n_views)]
+    t0 = time.perf_counter()
+    for name in names:
+        write_image(folder / "images" / name,
+                    rng.integers(0, 256, (height, width, 3), dtype=np.uint8))
+    images_s = time.perf_counter() - t0
+    cameras_file = folder / "cameras.xml"
+    _write_cameras(cameras_file, c2ws[:n_views], sensors, sensor_ids[:n_views], width,
+                   height)
+    on = {} if torch.device(dev).type == "cuda" else {"device": dev}
+    _reset_launches()
+    t0 = time.perf_counter()
+    mesh, _ = render_labels(survey["mesh_file"], cameras_file, folder / "images",
+                            texture=survey["labels_file"], texture_column_name="species",
+                            render_savefolder=folder / "renders", make_composites=True,
+                            vis=True, raster_config=RasterConfig(caps=caps_r), **on)
+    render_s = time.perf_counter() - t0
+    launches = _launches()
+    if launches["raster_tiles"] != n_views * (not on):
+        raise RuntimeError(f"11c: launches {launches} for {n_views} views")
+    comp_ms = []
+    for name in names:
+        mask = read_image_or_numpy(folder / "renders" / name).astype(float)
+        mask[mask == 255] = np.nan
+        raw = read_image_or_numpy(folder / "images" / name)
+        t0 = time.perf_counter()
+        plain = composite_to_uint8(create_composite(raw, mask, mesh.IDs_to_labels))
+        comp_ms.append((time.perf_counter() - t0) * 1e3)
+        got = read_image_or_numpy(folder / "renders" / (Path(name).stem + "_composite.png"))
+        if not np.array_equal(got, plain):
+            raise RuntimeError(f"11c: {name}'s composite differs from the plain one in "
+                               f"{int((got != plain).any(axis=-1).sum())} pixels")
+    cams = MetashapeCameraSet(cameras_file, folder / "images")
+    _held_vs_plain("11c", mesh, cams, 0, mesh.raster_config)
+    # visualize: the faces' ids as the texture, so the value map is the pix2face
+    res_m = ORTHO_RES_M if res_m is None else res_m
+    ids_file = folder / "face_ids.npy"
+    vis_mesh = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                            device=dev)
+    np.save(ids_file, np.arange(vis_mesh.n_faces, dtype=np.float64))
+    stats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    image = visualize(survey["mesh_file"], survey["cameras_file"], survey["image_folder"],
+                      texture=ids_file, resolution_m=res_m, export_html=folder / "mesh.html",
+                      screenshot_filename=folder / "visualize.png", stats=stats, **on)
+    visualize_s = time.perf_counter() - t0
+    for name, n in _launches().items():
+        launches[name] += n
+    # the tile's kernel against its plain version at the caps visualize chose
+    plan = vis_mesh.ortho_plan(resolution_m=res_m)
+    cfg = RasterConfig(caps=stats["caps"])
+    values = stats["values"]
+    p2f = np.where(np.isfinite(values), values, -1).astype(np.int32)
+    tile, _ = _ortho_kernel_vs_plain(plan, cfg, timed=False)
+    if not np.array_equal(tile.cpu().numpy()[:plan.height, :plan.width], p2f):
+        raise RuntimeError("11c: visualize's value map is not the ortho kernel's pix2face")
+    h, w = p2f.shape
+    oracle = _oracle_check("11c", plan, p2f, [
+        (int(h * fy), int(w * fx)) for fy, fx in ((0.5, 0.5), (0.3, 0.7), (0.7, 0.3))])
+    if image.shape != (h, w, 3) or not np.array_equal(
+            read_image_or_numpy(folder / "visualize.png"), image):
+        raise RuntimeError("11c: the screenshot is not the returned image")
+    cameras_marked = int((image == (255, 0, 0)).all(axis=-1).sum())
+    html_bytes = (folder / "mesh.html").stat().st_size
+    _line("11c", views=n_views, image=[height, width], images_write_s=round(images_s, 4),
+          render_labels_s=round(render_s, 4),
+          composite_ms=[round(t, 3) for t in comp_ms], composites_equal_plain=n_views,
+          visualize=dict(shape=[h, w], res_m=res_m, census=stats["census"],
+                         caps=list(stats["caps"]), seconds=round(visualize_s, 4),
+                         load_s=round(stats["load_s"], 4),
+                         census_s=round(stats["census_s"], 4),
+                         ortho_s=round(stats["ortho_s"], 4),
+                         html_s=round(stats["html_s"], 4), html_bytes=html_bytes,
+                         camera_pixels=cameras_marked, oracle=oracle),
+          view0_equal_plain=True, overflow=0, launches=launches, card=card)
+    return launches
+
+
+def _batch_phase(mesh, cams, cfg, caps_r, selection_folder, selection_picks, dev,
+                 card=None, scale=SELECTION_SCALE):
+    """Phase 11d: ``rasterize_batch`` over phase 3's views equal to one
+    ``rasterize_triangles`` a view (pinhole, at caps covering phase 3's and
+    phase 5's census), and ``determine_minimum_overlapping_images`` on 10a's
+    cameras with no ``raster_config``: no raise, 10a's picks at 10a's
+    census caps (``selection_picks``: 10a's (picks, caps)).  Returns the
+    launches."""
+    caps = tuple(max(a, b) for a, b in zip(cfg.caps, caps_r))
+    cfg_b = dataclasses.replace(cfg, caps=caps)
+    n = len(cams)
+    batch = cams.get_camera_batch(device=dev)
+    tri = mesh.get_tri_verts_device(cams)
+    _reset_launches()
+    p2f, batch_s = _timed(dev, lambda: rasterize_batch(
+        tri, batch.world_to_cam, batch.f, batch.image_width, batch.image_height, cfg_b))
+    launches = _launches()
+    for i in range(n):
+        one = rasterize_triangles(transform_to_camera(tri, batch.world_to_cam[i]),
+                                  batch.f[i], batch.image_width, batch.image_height,
+                                  cfg_b)
+        if not torch.equal(one, p2f[i]):
+            raise RuntimeError(f"11d: rasterize_batch view {i} differs from "
+                               f"rasterize_triangles in {int((one != p2f[i]).sum())} px")
+    if tuple(p2f.shape) != (n, batch.image_height, batch.image_width):
+        raise RuntimeError(f"11d: rasterize_batch shape {tuple(p2f.shape)}")
+    view0 = _held_vs_plain("11d", mesh, cams, 0, cfg_b)
+    if not torch.equal(view0, p2f[0]):
+        raise RuntimeError("11d: rasterize_batch view 0 is not the raster kernel's")
+    del p2f, view0
+    on = {} if torch.device(dev).type == "cuda" else {"device": dev}
+    stats = {}
+    _reset_launches()
+    chosen, select_s = _timed(dev, lambda: determine_minimum_overlapping_images(
+        selection_folder["mesh_file"], selection_folder["cameras_file"],
+        Path(selection_folder["cameras_file"]).parent / "images",
+        aggregate_image_scale=scale, stats=stats, **on))
+    for name, k in _launches().items():
+        launches[name] += k
+    picks_10a, caps_10a = selection_picks
+    if chosen != picks_10a or tuple(stats["caps"]) != caps_10a:
+        raise RuntimeError(f"11d: default-cap picks {chosen} at caps {stats['caps']} differ "
+                           f"from 10a's {picks_10a} at {caps_10a}")
+    _line("11d", views=n, batch_s=round(batch_s, 4), batch_equal_singles=True,
+          selection=dict(views=stats["visibility"].shape[1], scale=scale,
+                         caps=list(stats["caps"]), seconds=round(select_s, 4),
+                         load_s=round(stats["load_s"], 4), n_chosen=len(chosen),
+                         picks_equal_10a=True, caps_equal_10a=True),
+          view0_equal_plain=True, overflow=0, launches=launches, card=card)
+    return launches
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ import collections
 import dataclasses
 import hashlib
 import json
+import logging
+import os
+import shutil
 import threading
 import time
 from pathlib import Path
@@ -27,6 +30,11 @@ import torch
 from geograypher_tpu_torch.constants import EXAMPLE_INTRINSICS, PATH_TYPE
 from geograypher_tpu_torch.utils import crs as crs_utils
 from geograypher_tpu_torch.utils.device import resolve_device
+from geograypher_tpu_torch.utils.files import ensure_containing_folder
+from geograypher_tpu_torch.utils.geometric import (
+    angle_between,
+    projection_onto_spanned_plane,
+)
 from geograypher_tpu_torch.utils.io import read_image_or_numpy, resize_area
 from geograypher_tpu_torch.utils.vector import (
     Polygon,
@@ -70,6 +78,16 @@ class CameraBatch:
     distortion: torch.Tensor  # (N, 8) DISTORTION_KEYS order
     image_width: int
     image_height: int
+
+    @property
+    def n_cameras(self) -> int:
+        return self.cam_to_world.shape[0]
+
+    @property
+    def positions(self) -> torch.Tensor:
+        """(N, 3) camera centres in the local frame, on the batch's
+        device."""
+        return self.cam_to_world[:, :3, 3]
 
     def scaled(self, image_scale: float) -> "CameraBatch":
         """The batch at a scaled image resolution: sizes round with int(),
@@ -348,6 +366,23 @@ class CameraSet:
     def get_subset_every_nth(self, n: int) -> "CameraSet":
         return self.get_subset_cameras(range(0, len(self), max(int(n), 1)))
 
+    def export_images(self, output_folder: PATH_TYPE, copy: bool = False) -> None:
+        """Symlink (or, with ``copy``, copy) each camera's image into
+        ``output_folder`` under its own name; a missing image is logged
+        and skipped when copying."""
+        for i in range(len(self)):
+            src = self.get_image_filename(i, absolute=True)
+            if src is None:
+                continue
+            dst = ensure_containing_folder(Path(output_folder) / src.name)
+            if copy:
+                try:
+                    shutil.copy(src, dst)
+                except FileNotFoundError:
+                    logging.getLogger(__name__).warning("Could not find %s", src)
+            elif not dst.exists():
+                os.symlink(src, dst)
+
     def get_subset_ROI(
         self,
         ROI,
@@ -415,6 +450,49 @@ class CameraSet:
         self.lon_lats = list(zip(lon, lat))
         return list(self.lon_lats)
 
+    def get_camera_view_angles(
+        self,
+        indices: Optional[Sequence[int]] = None,
+        in_deg: bool = True,
+    ) -> np.ndarray:
+        """(N, 2) off-nadir (pitch, yaw) of each camera's view, in float64
+        on the host.
+
+        Pitch is the view vector's tilt from nadir within the camera's
+        up / nadir plane, yaw within its right / nadir plane, both in the
+        UTM frame of the cameras' mean position; the set must be
+        georeferenced (``local_to_epsg_4978_transform``).
+        """
+        if self.local_to_epsg_4978_transform is None:
+            raise ValueError(
+                "View angles need a georeferenced camera set "
+                "(local_to_epsg_4978_transform is None)"
+            )
+        if indices is None:
+            indices = range(len(self))
+        # origin, one unit along the view (+Z), up (-Y) and right (+X)
+        probes = np.array(
+            [[0, 0, 0, 1], [0, 0, 1, 1], [0, -1, 0, 1], [1, 0, 0, 1]],
+            dtype=np.float64,
+        ).T
+        c2w = np.stack([self.cam_to_world_transforms[i] for i in indices], axis=0)
+        ecef = np.einsum("ij,njk->nik", self.local_to_epsg_4978_transform,
+                         c2w @ probes)
+        ecef = ecef[:, :3].transpose(0, 2, 1).reshape(-1, 3)  # (N*4, 3)
+        lat, lon, alt = crs_utils.ecef_to_lla(ecef[:, 0], ecef[:, 1], ecef[:, 2])
+        utm = crs_utils.utm_epsg_for(np.mean(lat), np.mean(lon))
+        enu = crs_utils.transform_points(
+            np.stack([lat, lon, alt], axis=1), 4326, utm
+        ).reshape(-1, 4, 3)
+        view = enu[:, 1] - enu[:, 0]
+        up = enu[:, 2] - enu[:, 0]
+        right = enu[:, 3] - enu[:, 0]
+        nadir = np.array([0.0, 0.0, -1.0])
+        pitch = angle_between(projection_onto_spanned_plane(view, up, nadir), nadir)
+        yaw = angle_between(projection_onto_spanned_plane(view, right, nadir), nadir)
+        out = np.stack([pitch, yaw], axis=1)
+        return np.rad2deg(out) if in_deg else out
+
     def get_camera_hash(self, include_image_hash: bool = False) -> str:
         """Content hash of the set's geometry, INCLUDING distortion
         parameters: this hash keys the pix2face disk cache, and a
@@ -440,6 +518,16 @@ class CameraSet:
             if include_image_hash and self.image_filenames[i] is not None:
                 hasher.update(str(self.image_filenames[i]).encode())
         return hasher.hexdigest()
+
+    def sensor_groups(self) -> Dict[Tuple[int, int], List[int]]:
+        """Camera indices grouped by (width, height): each group forms one
+        :class:`CameraBatch`."""
+        groups: Dict[Tuple[int, int], List[int]] = {}
+        for i, sid in enumerate(self.sensor_IDs):
+            s = self.sensors[sid]
+            key = (int(s["image_width"]), int(s["image_height"]))
+            groups.setdefault(key, []).append(i)
+        return groups
 
     def get_camera_batch(
         self,
@@ -707,3 +795,6 @@ class CameraSet:
             new_h = int(img.shape[0] * image_scale)
             img = resize_area(img, new_w, new_h)
         return img
+
+    def n_image_channels(self) -> int:
+        return 3

@@ -203,9 +203,27 @@ def remap_image(
     return out
 
 
-def _bilinear(img: np.ndarray, map_y, map_x, fill_value) -> np.ndarray:
+def bilinear_wrapped(img: np.ndarray, map_y, map_x) -> np.ndarray:
+    """Bilinear remap whose columns wrap around (a panorama's longitude):
+    a tap left of column 0 or right of the last column reads the other
+    side, a tap above or below the image reads 0.  Dtypes as
+    :func:`remap_image` takes them."""
+    img = np.asarray(img)
+    orig_dtype = img.dtype
+    if img.dtype not in (np.uint8, np.float32, np.int16, np.uint16):
+        img = img.astype(np.float32)
+    out = _bilinear(img, np.asarray(map_y, np.float32),
+                    np.asarray(map_x, np.float32), 0.0, wrap_cols=True)
+    if np.issubdtype(orig_dtype, np.integer) and out.dtype != orig_dtype:
+        out = np.round(out).astype(orig_dtype)
+    return out
+
+
+def _bilinear(img: np.ndarray, map_y, map_x, fill_value,
+              wrap_cols: bool = False) -> np.ndarray:
     """4-tap float32 interpolation; a tap outside the image is
-    ``fill_value``."""
+    ``fill_value``, or with ``wrap_cols`` a tap beside it reads the
+    column modulo the width."""
     h, w = img.shape[:2]
     y0 = np.floor(map_y)
     x0 = np.floor(map_x)
@@ -215,6 +233,8 @@ def _bilinear(img: np.ndarray, map_y, map_x, fill_value) -> np.ndarray:
     extra = (1,) * (img.ndim - 2)
 
     def tap(yi, xi):
+        if wrap_cols:
+            xi = xi % w
         inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
         vals = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)].astype(np.float32)
         return np.where(inside.reshape(inside.shape + extra), vals,

@@ -6,6 +6,13 @@ prediction (one-hot class maps, detection rasters, ...) instead of the
 raw image.  A segmentor is any object with the interface of
 :class:`geograypher_tpu_torch.predictors.segmentors.Segmentor`
 (``segment_image`` and a ``needs_image`` flag).
+
+:meth:`SegmentorCameraSet.get_subset_with_valid_segmentation` drops a view
+only for what means "this view has no segmentation": a missing file
+(``FileNotFoundError``, what a segmentor raises for a missing label file),
+an image that does not decode (``ValueError``) and a label the segmentor
+has no entry for (``KeyError``, ``IndexError``).  The JAX package catches
+every ``Exception``; here a device error, or any other fault, propagates.
 """
 
 from __future__ import annotations
@@ -48,3 +55,21 @@ class SegmentorCameraSet(CameraSet):
         return self.segmentor.segment_image(
             raw, filename=fname, image_scale=image_scale, index=index
         )
+
+    def n_image_channels(self) -> int:
+        return self.segmentor.num_classes or 1
+
+    #: what a view without a segmentation raises (see the module docstring)
+    NO_SEGMENTATION = (FileNotFoundError, ValueError, KeyError, IndexError)
+
+    def get_subset_with_valid_segmentation(self) -> "SegmentorCameraSet":
+        """The cameras whose segmentation (at a quarter of the image
+        size) succeeds."""
+        ok = []
+        for i in range(len(self)):
+            try:
+                self.get_image_by_index(i, image_scale=0.25)
+            except self.NO_SEGMENTATION:
+                continue
+            ok.append(i)
+        return self.get_subset_cameras(ok)

@@ -14,6 +14,7 @@ _ENTRYPOINTS = {
     "determine_minimum_overlapping_images": "annotation_image_selection",
     "chip_ortho": "chip_ortho",
     "assemble_ortho_predictions": "assemble_ortho_predictions",
+    "visualize": "visualize",
 }
 
 __all__ = list(_ENTRYPOINTS)

@@ -12,6 +12,12 @@ it stays a sparse matrix, and the greedy cover runs on ``device`` over
 its two compressed forms (:func:`greedy_set_cover_sparse`), pick for
 pick what :func:`greedy_set_cover` (the JAX loop on a dense matrix, kept
 as the plain version) picks.
+
+Without a ``raster_config`` the tile-list caps are sized by a census of
+the views it rasterizes (``TexturedMesh.view_raster_census``, margined
+by the planner's ``census_caps``): at the default scale 0.05 a 1M-face
+mesh puts thousands of faces in one tile's list, past the default caps.  An explicit ``raster_config`` that overflows
+raises; the JAX package drops that overflow silently.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
 from geograypher_tpu_torch.meshes.sparse import aggregate_index_predictions
 from geograypher_tpu_torch.ops.rasterize import RasterConfig
+from geograypher_tpu_torch.parallel.planner import census_caps
 from geograypher_tpu_torch.predictors.segmentors import ImageIDSegmentor
 from geograypher_tpu_torch.utils.device import resolve_device
 from geograypher_tpu_torch.utils.files import ensure_folder
@@ -130,11 +137,13 @@ def determine_minimum_overlapping_images(
     Arguments as in the JAX package's function.  ``device`` is where the
     per-view work and the greedy cover run (the card by default; raises
     without one); ``raster_config`` replaces the mesh's default tile-list
-    capacities.  ``stats``, when given, gets the seconds of loading
-    (``load_s``), of the views (``aggregate_s``, and under ``views`` one
-    dict of stage seconds a view) and of the cover (``greedy_s``), the
-    count of seen faces (``seen_faces``) and the (faces, images)
-    visibility CSR (``visibility``).  Returns the chosen camera indices.
+    capacities (without it, a census of the views sizes them).
+    ``stats``, when given, gets the seconds of loading (``load_s``, the
+    census included), of the views (``aggregate_s``, and under ``views``
+    one dict of stage seconds a view) and of the cover (``greedy_s``), the
+    caps the run used (``caps``), the count of seen faces
+    (``seen_faces``) and the (faces, images) visibility CSR
+    (``visibility``).  Returns the chosen camera indices.
     """
     view_stats = None if stats is None else []
     stats = {} if stats is None else stats
@@ -161,6 +170,10 @@ def determine_minimum_overlapping_images(
         num_images=len(camera_set),
     )
     seg_cameras = SegmentorCameraSet(camera_set, segmentor)
+    if raster_config is None:
+        mesh.raster_config = census_caps(
+            mesh.view_raster_census(camera_set, aggregate_image_scale),
+            mesh.raster_config)
     t1 = time.perf_counter()
     # faces x images visibility counts (reference :100-117)
     counts, _ = aggregate_index_predictions(
@@ -176,6 +189,7 @@ def determine_minimum_overlapping_images(
     chosen = greedy_set_cover_sparse(visibility, device=mesh.device)
     t3 = time.perf_counter()
     stats.update(load_s=t1 - t0, aggregate_s=t2 - t1, greedy_s=t3 - t2,
+                 caps=tuple(mesh.raster_config.caps),
                  views=view_stats, visibility=visibility,
                  seen_faces=int((np.diff(visibility.indptr) > 0).sum()))
 

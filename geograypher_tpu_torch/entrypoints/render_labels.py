@@ -10,9 +10,11 @@ named after the images; with ``n_cameras_per_chunk``, camera cluster by
 camera cluster, each from its own buffered sub-mesh
 (``meshes/chunked.py``).  With a DTM, labelled vertices less than
 ``ground_height_threshold`` above it are relabelled to a ground class
-(rendered with ``render_ground_class``, else left unlabelled).
-Composites and ``vis`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+(rendered with ``render_ground_class``, else left unlabelled).  With
+``make_composites`` every mask whose view has an image also gets a
+``<stem>_composite.png`` beside it (label | image | overlay), on the
+chunked route as well.  ``vis`` is accepted and, as in the JAX package,
+read nowhere.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMes
 from geograypher_tpu_torch.ops.rasterize import RasterConfig
 from geograypher_tpu_torch.utils.files import ensure_folder
 from geograypher_tpu_torch.utils.io import write_image
+from geograypher_tpu_torch.utils.visualization import save_composite
 
 VECTOR_SUFFIXES = (".geojson", ".json", ".gpkg", ".shp")
 
@@ -70,10 +73,7 @@ def render_labels(
     view that overflows them raises after the last view, and larger
     ``caps`` are the remedy.  Returns (mesh, camera_set).
     """
-    if make_composites or vis:
-        raise NotImplementedError(
-            "composites and the viewer are not ported yet (ROADMAP A9)"
-        )
+    del vis  # accepted as the JAX package accepts it, and read nowhere
     camera_set = MetashapeCameraSet(
         cameras_file,
         image_folder,
@@ -136,16 +136,21 @@ def render_labels(
             render_img_scale=render_image_scale,
         ):
             fname = cam.image_filenames[0]
-            out = Path(render_savefolder) / (fname.name if fname else "render.png")
+            out = (Path(render_savefolder)
+                   / (fname.name if fname else "render.png")).with_suffix(".png")
             data = np.where(np.isfinite(img[..., 0]), img[..., 0], 255.0)
-            write_image(out.with_suffix(".png"),
-                        np.clip(data, 0, 255).astype(np.uint8))
+            write_image(out, np.clip(data, 0, 255).astype(np.uint8))
+            if make_composites and fname is not None and fname.exists():
+                save_composite(img[..., 0], fname,
+                               out.with_name(out.stem + "_composite.png"),
+                               mesh.IDs_to_labels)
     else:
         mesh.save_renders(
             camera_set,
             render_image_scale=render_image_scale,
             output_folder=render_savefolder,
             save_native_resolution=save_native_resolution,
+            make_composites=make_composites,
         )
     return mesh, camera_set
 

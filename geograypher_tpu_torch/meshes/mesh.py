@@ -90,6 +90,7 @@ from geograypher_tpu_torch.utils.vector import (
     polygons_from_mask,
     rasterize_polygons,
 )
+from geograypher_tpu_torch.utils.visualization import save_composite
 
 logger = logging.getLogger(__name__)
 
@@ -1444,12 +1445,12 @@ class TexturedMesh:
 
         A view whose tile lists dropped candidates writes no file (its
         overflow is read before the write); after the last view the call
-        raises naming those views.
+        raises naming those views.  With ``make_composites`` each view
+        whose image exists also gets ``<stem>_composite.png`` (the PNG
+        files only): the float render (unlabelled NaN) against the raw
+        image, resized bilinearly to the render where the sizes differ
+        (:func:`~geograypher_tpu_torch.utils.visualization.save_composite`).
         """
-        if make_composites:
-            raise NotImplementedError(
-                "composite images are not ported yet (ROADMAP A9)"
-            )
         if output_extension != ".npy" and not cast_to_uint8:
             raise ValueError(
                 "an image file takes the uint8 mask: pass cast_to_uint8=True, "
@@ -1467,11 +1468,6 @@ class TexturedMesh:
             out_path = (output_folder / rel).with_suffix(output_extension)
             ensure_containing_folder(out_path)
             data = img[..., 0] if img.shape[-1] == 1 else img
-            if output_extension != ".npy":
-                data = torch.where(torch.isfinite(data), data, 255.0)
-                data = data.clamp(0, 255).to(torch.uint8)
-                if data.ndim == 3 and data.shape[-1] in (3, 4):
-                    data = data[..., [2, 1, 0, 3][: data.shape[-1]]]
             if save_native_resolution and render_image_scale != 1.0:
                 sensor = cameras.sensors[cameras.sensor_IDs[i]]
                 rows = torch.as_tensor(nearest_indices(
@@ -1479,7 +1475,18 @@ class TexturedMesh:
                 cols = torch.as_tensor(nearest_indices(
                     data.shape[1], sensor["image_width"]), device=self.device)
                 data = data[rows[:, None], cols[None, :]]
-            write_image(out_path, data.cpu().numpy())
+            if output_extension == ".npy":
+                write_image(out_path, data.cpu().numpy())
+                continue
+            mask = torch.where(torch.isfinite(data), data, 255.0)
+            mask = mask.clamp(0, 255).to(torch.uint8)
+            if mask.ndim == 3 and mask.shape[-1] in (3, 4):
+                mask = mask[..., [2, 1, 0, 3][: mask.shape[-1]]]
+            write_image(out_path, mask.cpu().numpy())
+            if make_composites and fname is not None and Path(fname).exists():
+                save_composite(data.cpu().numpy(), fname,
+                               out_path.with_name(out_path.stem + "_composite.png"),
+                               self.IDs_to_labels)
         if overflowed:
             raise RuntimeError(
                 f"raster capacity overflow in views {overflowed}: their tile "
@@ -1578,6 +1585,27 @@ class TexturedMesh:
                 config, plan.tile_h, plan.tile_w, return_census=True)
             for _, _, w2c in plan.tiles
         ]
+        return torch.stack(census).amax(0).tolist()
+
+    def view_raster_census(
+        self,
+        cameras: CameraSet,
+        image_scale: float = 1.0,
+        config: typing.Optional[RasterConfig] = None,
+    ) -> typing.List[int]:
+        """Per-level maximum tile-list demand over every view's pinhole
+        render at ``image_scale`` (the planner's census, one fetch for all
+        views): caps at or above it drop nothing."""
+        config = _planner.census_config_of(config or self.raster_config)
+        soa = self._tri_soa_device(cameras, config.bin_block)
+        census = []
+        for i in range(len(cameras)):
+            batch = cameras.get_camera_batch([i], image_scale=image_scale,
+                                             device=self.device)
+            row = torch.as_tensor(_planner.pack_camera_batch(batch, np.ones(1))[0],
+                                  device=self.device)
+            census.append(_planner.census_view(soa, row, config, False,
+                                               batch.image_height, batch.image_width))
         return torch.stack(census).amax(0).tolist()
 
     def ortho_pix2face(
@@ -1884,6 +1912,58 @@ class TexturedMesh:
         bottom = (np.stack([xx.ravel(), yy.ravel(), z_lo.ravel()], axis=1),
                   faces.copy())
         return top, bottom
+
+    def export_html_viewer(
+        self,
+        path: PATH_TYPE,
+        cameras: typing.Optional[CameraSet] = None,
+        max_faces: int = 400_000,
+        frustum_scale: typing.Optional[float] = None,
+    ) -> None:
+        """Write a self-contained interactive 3D viewer as one HTML file
+        (``utils/html_viewer.py``): the mesh (decimated to about
+        ``max_faces``) coloured by its texture, a multi-class texture by
+        its argmax, in the cameras' local frame, with each camera's
+        frustum.  The frustums take the cameras' float32 poses and focal
+        lengths, as a camera batch holds them, on the host."""
+        from geograypher_tpu_torch.utils.html_viewer import (
+            export_html_viewer,
+            frustum_lines,
+        )
+
+        mesh = self
+        if self.n_faces > max_faces:
+            mesh = self.downsample(max_faces / self.n_faces)
+        verts = mesh.get_verts_in_local_frame(cameras)
+        tex = mesh.get_texture(
+            request_vertex_texture=False, try_verts_faces_conversion=True
+        )
+        face_values = None
+        if tex is not None:
+            tex = np.asarray(tex)
+            face_values = (
+                np.nanargmax(np.nan_to_num(tex), axis=1).astype(float)
+                if tex.ndim == 2 and tex.shape[1] > 1
+                else tex.reshape(-1)
+            )
+        frustums = None
+        if cameras is not None and len(cameras):
+            span = float(np.abs(verts - verts.mean(axis=0)).max()) or 1.0
+            scale = frustum_scale or span * 0.08
+            frustums = []
+            for i in range(len(cameras)):
+                sensor = cameras.sensors[cameras.sensor_IDs[i]]
+                frustums.append(frustum_lines(
+                    cameras.cam_to_world_transforms[i].astype(np.float32),
+                    float(np.float32(sensor["f"])),
+                    int(sensor["image_width"]),
+                    int(sensor["image_height"]),
+                    scale=scale,
+                ))
+        export_html_viewer(
+            path, verts, mesh.faces, face_values=face_values,
+            frustums=frustums, title=str(path),
+        )
 
     def save_mesh(self, savepath: PATH_TYPE, write_texture: bool = True):
         """Write the geometry (and a vertex texture as colours) as PLY."""

@@ -581,6 +581,42 @@ def rasterize_triangles(
     return pix2face
 
 
+def rasterize_batch(
+    tri_verts: torch.Tensor,
+    world_to_cam: torch.Tensor,
+    f: torch.Tensor,
+    image_w: int,
+    image_h: int,
+    config: RasterConfig = RasterConfig(),
+) -> torch.Tensor:
+    """(N, image_h, image_w) int32 pix2face of N cameras over local-frame
+    (F, 3, 3) triangles, on their device; -1 for background.
+
+    The (9, F) coordinate rows are built once for the batch
+    (:func:`tri_to_soa`) and each view runs the chain of
+    :func:`rasterize_triangles` on them (``world_to_cam`` (N, 4, 4), ``f``
+    (N,)).  The views' overflow is read once, after the last, and a
+    nonzero one raises ``ValueError`` naming the views (no drop is
+    silent)."""
+    soa = tri_to_soa(tri_verts)
+    out = torch.empty((world_to_cam.shape[0], image_h, image_w), dtype=torch.int32,
+                      device=tri_verts.device)
+    overflow = []
+    for i in range(world_to_cam.shape[0]):
+        setup = setup_from_soa(soa, world_to_cam[i], f[i], image_w, image_h,
+                               config.znear)
+        out[i], binned = rasterize_setup(setup, config, image_h, image_w)
+        overflow.append(binned.overflow)
+    dropped = torch.stack(overflow).cpu() if overflow else torch.zeros(0)
+    if dropped.any():
+        views = torch.nonzero(dropped).flatten().tolist()
+        raise ValueError(
+            f"rasterize_batch: the tile lists of views {views} dropped "
+            f"{dropped[views].tolist()} candidates at caps {tuple(config.caps)}; "
+            "their pix2face is incomplete.  Raise the caps (a census sizes them)")
+    return out
+
+
 def raise_on_overflow(overflow: torch.Tensor, config: RasterConfig, what: str) -> None:
     """Read a view's overflow (one synchronise) and raise ``ValueError``
     naming the candidates the tile lists dropped when it is nonzero."""

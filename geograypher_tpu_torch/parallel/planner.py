@@ -56,6 +56,8 @@ logger = logging.getLogger(__name__)
 # packed per-view parameter row: [w2c (16), f, dist (8), pcx, pcy, valid]
 PROW = 28
 
+CAP_MARGIN = 1.25  # census maxima x margin, before 16-alignment
+
 # rounding grid of the bucket keys: views whose margined caps round to the
 # same grid point share a bucket
 CAP_GRID = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
@@ -163,7 +165,7 @@ class AggregationPlan:
 # ---------------------------------------------------------------------------
 
 
-def _census_view(tri_soa, row, config: RasterConfig, use_dist: bool,
+def census_view(tri_soa, row, config: RasterConfig, use_dist: bool,
                  image_h: int, image_w: int) -> torch.Tensor:
     """One view's exact per-level maximum tile occupancy (4,), on the
     device, under the setup its run uses (with level S on, of the L0..L3
@@ -181,6 +183,15 @@ def _margin_caps(lvl: np.ndarray, margin: float) -> tuple:
     return tuple(
         int(max(16, -(-int(np.ceil(c * margin)) // 16) * 16)) for c in lvl
     )
+
+
+def census_caps(census, config: RasterConfig,
+                cap_margin: float = CAP_MARGIN) -> RasterConfig:
+    """``config`` with caps that hold every census in ``census`` (per-level
+    maxima, (4,) or (N, 4)): the elementwise maximum, margined and
+    16-aligned as a plan's bucket caps are."""
+    lvl = np.asarray(census).reshape(-1, 4).max(axis=0)
+    return dataclasses.replace(config, caps=_margin_caps(lvl, cap_margin))
 
 
 def _bucket_key(caps: tuple) -> tuple:
@@ -228,7 +239,7 @@ def plan_aggregation(
     *,
     use_dist: bool = False,
     max_buckets: int = 4,
-    cap_margin: float = 1.25,
+    cap_margin: float = CAP_MARGIN,
     census_sample: typing.Optional[int] = None,
     sample_extra_margin: float = 1.4,
 ) -> AggregationPlan:
@@ -269,7 +280,7 @@ def plan_aggregation(
         np.asarray(params, np.float32)).to(tri_soa.device)
     # every census is launched before the one fetch of their stacked maxima
     lvls = torch.stack([
-        _census_view(tri_soa, params_dev[k], census_cfg, use_dist, image_h,
+        census_view(tri_soa, params_dev[k], census_cfg, use_dist, image_h,
                      image_w)
         for k in census_idx
     ]).cpu().numpy()

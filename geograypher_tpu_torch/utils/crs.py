@@ -554,6 +554,11 @@ def crs_is_projected(epsg: int) -> bool:
     )
 
 
+def crs_is_geocentric(epsg: int) -> bool:
+    """True for EPSG:4978 (ECEF), the one geocentric code supported."""
+    return int(epsg) == 4978
+
+
 def _datum_of(epsg: int) -> str:
     """Datum family of a supported CRS code (for opt-in datum shifts)."""
     epsg = int(epsg)
@@ -638,3 +643,8 @@ def transform_points(
         e, n = lla_to_tm(lat, lon, lon0, UTM_K0, UTM_FALSE_EASTING, fn)
         out = np.stack([e, n, alt], axis=1)
     return out[0] if squeeze else out
+
+
+def convert_CRS_3D_points(points, input_CRS, output_CRS):
+    """:func:`transform_points` under the name the JAX package gives it."""
+    return transform_points(points, input_CRS, output_CRS)

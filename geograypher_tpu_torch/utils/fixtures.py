@@ -1,8 +1,8 @@
 """Synthetic analytic scenes (numpy, on the host).
 
-Port of the grid mesh, the camera poses and the brute-force oracle of
-``geograypher_tpu/utils/fixtures.py``; the tests hold each equal to the
-JAX package's.  :func:`knife_edge_triangles` is the port's own: the
+Port of the grid and irregular meshes, the camera poses and the
+brute-force oracle of ``geograypher_tpu/utils/fixtures.py``; the tests
+hold each equal to the JAX package's.  :func:`knife_edge_triangles` is the port's own: the
 adversarial scene its raster kernels are held to their plain versions on.
 """
 
@@ -44,6 +44,47 @@ def make_grid_mesh(
     tri_b = np.stack([v00, v11, v01], axis=1)
     faces = np.concatenate([tri_a, tri_b], axis=1).reshape(-1, 3)
     return verts, faces.astype(np.int32)
+
+
+def make_irregular_mesh(
+    n_points: int = 2000,
+    size: float = 4.0,
+    z_fn=None,
+    seed: int = 0,
+    jitter: float = 0.45,
+    extra_frac: float = 0.2,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Irregular Delaunay TIN over jittered grid points plus uniform
+    extras, what photogrammetry software exports: no scanline structure,
+    irregular valence, locally varying density.  ``jitter`` is each
+    point's displacement in grid steps, ``extra_frac`` the share of extra
+    uniformly random points; triangles turn counter-clockwise in xy.
+
+    Returns (verts (V, 3) float64, faces (F, 3) int32), F ~= 2 * n_points.
+    """
+    from scipy.spatial import Delaunay
+
+    rng = np.random.default_rng(seed)
+    n_grid = max(int(np.sqrt(n_points / (1.0 + extra_frac))), 2)
+    step = size / (n_grid - 1)
+    coords = -size / 2 + step * np.arange(n_grid)
+    xx, yy = np.meshgrid(coords, coords, indexing="xy")
+    pts = np.stack([xx.ravel(), yy.ravel()], axis=1)
+    pts = pts + rng.uniform(-jitter * step, jitter * step, pts.shape)
+    n_extra = int(extra_frac * pts.shape[0])
+    if n_extra:
+        extra = rng.uniform(-size / 2, size / 2, (n_extra, 2))
+        pts = np.concatenate([pts, extra], axis=0)
+    faces = Delaunay(pts).simplices.astype(np.int32)
+    # Delaunay does not promise an orientation: turn every face CCW in xy
+    a, b, c = pts[faces[:, 0]], pts[faces[:, 1]], pts[faces[:, 2]]
+    det = (b[:, 0] - a[:, 0]) * (c[:, 1] - a[:, 1]) - (
+        b[:, 1] - a[:, 1]
+    ) * (c[:, 0] - a[:, 0])
+    flip = det < 0
+    faces[flip] = faces[flip][:, ::-1]
+    zz = np.zeros(pts.shape[0]) if z_fn is None else z_fn(pts[:, 0], pts[:, 1])
+    return np.concatenate([pts, zz[:, None]], axis=1), faces
 
 
 def oblique_camera(

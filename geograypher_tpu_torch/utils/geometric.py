@@ -1,13 +1,54 @@
-"""Face orderings for tile binning (numpy, on the host).
+"""Small geometric helpers and face orderings for tile binning (numpy, on
+the host).
 
-Port of ``serpentine_face_order`` and ``partitioned_face_order`` of
-``geograypher_tpu/utils/geometric.py``; the tests hold both orders equal
-to the JAX package's.
+Port of ``geograypher_tpu/utils/geometric.py``: the transform's scale,
+angles and projections between vectors (vectorized over leading axes),
+and ``serpentine_face_order`` / ``partitioned_face_order``; the tests hold
+each equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def get_scale_from_transform(transform) -> float:
+    """Isotropic scale of a 4x4: the cube root of its rotation block's
+    determinant (1.0 for None)."""
+    if transform is None:
+        return 1.0
+    return float(np.cbrt(np.linalg.det(np.asarray(transform)[:3, :3])))
+
+
+def angle_between(v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
+    """Angle(s) in radians between vectors along the last axis."""
+    v1 = np.asarray(v1, dtype=np.float64)
+    v2 = np.asarray(v2, dtype=np.float64)
+    n1 = np.linalg.norm(v1, axis=-1)
+    n2 = np.linalg.norm(v2, axis=-1)
+    dot = np.sum(v1 * v2, axis=-1)
+    cos = np.clip(dot / np.maximum(n1 * n2, 1e-300), -1.0, 1.0)
+    return np.arccos(cos)
+
+
+def orthogonal_projection(v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
+    """Projection of v1 onto v2."""
+    v2 = np.asarray(v2, dtype=np.float64)
+    denom = np.sum(v2 * v2, axis=-1, keepdims=True)
+    return v2 * np.sum(np.asarray(v1) * v2, axis=-1, keepdims=True) / denom
+
+
+def projection_onto_plane(v: np.ndarray, normal: np.ndarray) -> np.ndarray:
+    """Component of v in the plane with the given normal."""
+    return np.asarray(v, dtype=np.float64) - orthogonal_projection(v, normal)
+
+
+def projection_onto_spanned_plane(
+    v: np.ndarray, e1: np.ndarray, e2: np.ndarray
+) -> np.ndarray:
+    """Component of v in the plane spanned by e1 and e2."""
+    normal = np.cross(np.asarray(e1, np.float64), np.asarray(e2, np.float64))
+    return projection_onto_plane(v, normal)
 
 
 def serpentine_face_order(

@@ -169,9 +169,9 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
 
 
 def read_image_or_numpy(filename: PATH_TYPE) -> np.ndarray:
-    """Read an image file or .npy array.  PNG files go through the port's
-    own decoder; what it does not read goes to ``imageio`` when that is
-    installed."""
+    """Read an image file or .npy array.  PNG and TIFF files go through the
+    port's own decoders (``utils/tiff.py`` for TIFF); what they do not
+    read (JPEG among others) goes to ``imageio`` when that is installed."""
     filename = Path(filename)
     suffix = filename.suffix.lower()
     if suffix == ".npy":
@@ -180,6 +180,13 @@ def read_image_or_numpy(filename: PATH_TYPE) -> np.ndarray:
         image = decode_png(filename.read_bytes())
         if image is not None:
             return image
+    if suffix in (".tif", ".tiff"):
+        from geograypher_tpu_torch.utils.tiff import read_tiff
+
+        try:
+            return read_tiff(filename).data
+        except ValueError:
+            pass
     try:
         import imageio.v3 as iio
     except ImportError:
@@ -260,18 +267,26 @@ def _area_linear_taps(src_size: int, dst_size: int):
     return idx, np.stack([1 - fx, fx], axis=1).astype(np.float32)
 
 
-def resize_area(image: np.ndarray, width: int, height: int) -> np.ndarray:
-    """``cv2.resize(image, (width, height), interpolation=cv2.INTER_AREA)``
-    without cv2.  When neither axis grows, every destination pixel is the
-    mean of the source area it covers, fractional pixels weighted by their
-    share; when one axis grows, both axes interpolate linearly between two
-    source pixels with cv2's area-mode fractions.  Integer images are
-    rounded back to their dtype (uint8 agrees with cv2 to +-1, which works
-    in fixed point; float32 to ~1e-6).
-    """
+def _linear_taps(src_size: int, dst_size: int):
+    """cv2's INTER_LINEAR taps: the source position ``(d + 0.5) * scale -
+    0.5`` between its two neighbours, held at the first and last pixel."""
+    scale = src_size / dst_size
+    fx = (np.arange(dst_size) + 0.5) * scale - 0.5
+    sx = np.floor(fx).astype(np.int64)
+    fx = fx - sx
+    low = sx < 0
+    high = sx >= src_size - 1
+    fx = np.where(low | high, 0.0, fx)
+    sx = np.where(low, 0, np.where(high, src_size - 1, sx))
+    idx = np.stack([sx, np.minimum(sx + 1, src_size - 1)], axis=1)
+    return idx, np.stack([1 - fx, fx], axis=1).astype(np.float32)
+
+
+def _resize_separable(image: np.ndarray, width: int, height: int, taps) -> np.ndarray:
+    """Resize by ``taps(src, dst) -> (indices, weights)`` along rows, then
+    columns, in float32; integer images are rounded back to their dtype."""
     image = np.asarray(image)
     h, w = image.shape[:2]
-    taps = _area_taps if width <= w and height <= h else _area_linear_taps
     out = image.astype(np.float32)
     for axis, (src, dst) in enumerate(((h, height), (w, width))):
         if src == dst:
@@ -287,3 +302,25 @@ def resize_area(image: np.ndarray, width: int, height: int) -> np.ndarray:
         info = np.iinfo(image.dtype)
         return np.clip(np.rint(out), info.min, info.max).astype(image.dtype)
     return out.astype(image.dtype) if image.dtype == np.float64 else out
+
+
+def resize_linear(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(image, (width, height))`` (``INTER_LINEAR``, cv2's
+    default) without cv2: every destination pixel interpolates between the
+    two source pixels around its centre on each axis, in float32.  uint8
+    agrees with cv2 to +-1 (cv2 weighs in fixed point)."""
+    return _resize_separable(image, width, height, _linear_taps)
+
+
+def resize_area(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(image, (width, height), interpolation=cv2.INTER_AREA)``
+    without cv2.  When neither axis grows, every destination pixel is the
+    mean of the source area it covers, fractional pixels weighted by their
+    share; when one axis grows, both axes interpolate linearly between two
+    source pixels with cv2's area-mode fractions.  Integer images are
+    rounded back to their dtype (uint8 agrees with cv2 to +-1, which works
+    in fixed point; float32 to ~1e-6).
+    """
+    h, w = np.asarray(image).shape[:2]
+    taps = _area_taps if width <= w and height <= h else _area_linear_taps
+    return _resize_separable(image, width, height, taps)

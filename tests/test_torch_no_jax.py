@@ -57,7 +57,9 @@ for name in ("parallel.pipeline", "parallel.sharding", "meshes.chunked",
              "entrypoints.render_height_masks", "entrypoints.label_polygons",
              "utils.profiling", "utils.indexing", "utils.prediction_metrics",
              "predictors.ortho", "entrypoints.annotation_image_selection",
-             "entrypoints.chip_ortho", "entrypoints.assemble_ortho_predictions"):
+             "entrypoints.chip_ortho", "entrypoints.assemble_ortho_predictions",
+             "cameras.colmap", "cameras.rig", "utils.image", "utils.colormaps",
+             "utils.visualization", "utils.html_viewer", "entrypoints.visualize"):
     assert "geograypher_tpu_torch." + name in names, names
 for name in names:
     importlib.import_module(name)
@@ -295,6 +297,58 @@ print("ok")
 """
 
 
+# chip_smoke.py's phase 11 at a tiny size on CPU tensors, with the same
+# modules refused: 10a's census-cap selection (for its picks), the COLMAP
+# export and its aggregation against the matrices' (11a), the under-canopy
+# rig survey and its aggregation (11b), composites and ``visualize`` with
+# the HTML export (11c), ``rasterize_batch`` and the selection at its
+# default caps (11d)
+PHASE11_PATH = REFUSE + r"""
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn", "networkx", "rasterio", "osgeo", "matplotlib")
+refuse(*REFUSED)
+import tempfile
+from pathlib import Path
+import numpy as np
+import chip_smoke as cs
+from geograypher_tpu_torch.meshes.mesh import TexturedMesh
+
+TexturedMesh._PLANNED_MIN_PIXELS = 1  # the planned route at this size
+w, h = 96, 64
+verts, faces = cs.make_grid_mesh(n=41, size=4.0, z_fn=lambda x, y: cs._surface(x, y))
+dist = {"k1": 0.02, "k2": -0.01, "p1": 1e-3}
+sensors = {k: {"f": (50.0, 65.0)[k % 2], "cx": 0.0, "cy": 0.0, "image_width": w,
+               "image_height": h, **({"distortion_params": dist} if k > 1 else {})}
+           for k in range(4)}
+cfg = cs.RasterConfig(caps=(512, 128, 64, 64))
+mesh = TexturedMesh((verts, faces), raster_config=cfg, device="cpu")
+mesh.spatial_sort_faces()
+c2ws, ids = cs._suite_cameras(n_views=4), cs._suite_sensor_ids(4)
+cams = cs.CameraSet(c2ws, sensors, sensor_IDs=ids)
+launches = []
+with tempfile.TemporaryDirectory() as folder:
+    survey = cs._write_survey(folder, verts, faces, c2ws, sensors, ids, w, h)
+    selection = Path(folder) / "selection_cameras.xml"
+    cs._write_cameras(selection, cs._suite_cameras(n_views=6), sensors,
+                      cs._suite_sensor_ids(6), w, h)
+    picks = {}
+    launches.append(cs._selection_run(survey["mesh_file"], selection, 0.5, "cpu",
+                                      plain_every=3, picks=picks))
+    launches.append(cs._colmap_phase(folder, mesh, sensors, "cpu", n_views=4, width=w,
+                                     height=h, n_big=20, n_points=50))
+    launches.append(cs._rig_phase(folder, "cpu", n_stations=2, sensor=32, pano=(64, 128)))
+    launches.append(cs._composite_phase(folder, survey, c2ws, sensors, ids, cfg.caps, "cpu",
+                                        n_views=2, width=w, height=h, res_m=0.02))
+    launches.append(cs._batch_phase(mesh, cams, cfg, cfg.caps, dict(
+        mesh_file=survey["mesh_file"], cameras_file=selection), picks["10a"], "cpu",
+        scale=0.5))
+# CPU tensors take the plain versions
+assert not any(any(row.values()) for row in launches), launches
+assert not loaded(*REFUSED), loaded(*REFUSED)
+print("ok")
+"""
+
+
 def run(code):
     # one intra-op thread: the tiny tensors gain nothing from more, and
     # parallel test workers would oversubscribe the cores
@@ -331,7 +385,7 @@ def test_no_port_file_imports_the_jax_package():
 def test_port_and_chip_smoke_import_no_jax():
     out = run(IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52  # every module was imported
+    assert int(out.stdout.strip()) >= 59  # every module was imported
 
 
 def test_chip_smoke_path_needs_nothing_of_the_jax_package():
@@ -365,6 +419,15 @@ def test_chip_smoke_selection_and_ortho_predict_path_needs_nothing_of_the_jax_pa
     assert lines[-1] == "ok"
     phases = [json.loads(ln)["phase"] for ln in lines if ln.startswith("{")]
     assert {"10a", "10a_full", "10b"} <= set(phases), phases
+
+
+def test_chip_smoke_phase11_path_needs_nothing_of_the_jax_package():
+    out = run(PHASE11_PATH)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    phases = [json.loads(ln)["phase"] for ln in lines if ln.startswith("{")]
+    assert {"11a", "11b", "11c", "11d"} <= set(phases), phases
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

@@ -99,7 +99,7 @@ def test_census_equals_jax(port_scene, scene):
     cfg = tplanner.census_config_of(CFG)
     for k in range(N_VIEWS):
         want = np.asarray(census(scene[0], params[k])[0])
-        got = tplanner._census_view(tri, torch.as_tensor(params[k]), cfg, False,
+        got = tplanner.census_view(tri, torch.as_tensor(params[k]), cfg, False,
                                     H, W)
         np.testing.assert_array_equal(got.numpy(), want)
         assert want.sum() > 0

@@ -391,8 +391,13 @@ def test_save_renders_other_outputs(scene, tmp_path):
     assert ours.shape == theirs.shape == (H, W, 3)
     assert (ours == theirs).all(axis=-1).mean() >= 0.99
     assert (ours == 0).any() and (ours == 255).any()  # clipped both ways
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        mesh.save_renders(one, output_folder=tmp_path / "x", make_composites=True)
+    # composites are ported (tests/test_torch_viewers.py): a view whose
+    # image is missing gets its mask and no composite, as in the JAX package
+    mesh.save_renders(one, output_folder=tmp_path / "x", make_composites=True)
+    jmesh.save_renders(jone, output_folder=tmp_path / "jx", make_composites=True,
+                       config=XLA)
+    assert sorted(p.name for p in (tmp_path / "x").iterdir()) == ["view_2.png"]
+    assert sorted(p.name for p in (tmp_path / "jx").iterdir()) == ["view_2.png"]
     with pytest.raises(ValueError, match="cast_to_uint8"):
         mesh.save_renders(one, output_folder=tmp_path / "x", cast_to_uint8=False)
 
@@ -524,12 +529,18 @@ def test_render_labels_matches_jax_mesh(survey, tmp_path):
         name = f"img_{k:04d}.png"
         np.testing.assert_array_equal(read_image_or_numpy(tmp_path / "c" / name),
                                       read_image_or_numpy(tmp_path / "t" / name))
-    # DTM_file is ported since A6 (tests/test_torch_dtm.py)
-    for kw, item in ((dict(make_composites=True), "A9"), (dict(vis=True), "A9")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            render_labels(survey["mesh_file"], survey["cameras_file"],
-                          survey["image_folder"], survey["labels_vector_file"],
-                          tmp_path / "x", device="cpu", **kw)
+    # DTM_file is ported since A6 (tests/test_torch_dtm.py), composites and
+    # vis since A9's rest (tests/test_torch_viewers.py): vis is accepted and
+    # read nowhere, composites join the masks
+    for kw, composites in ((dict(make_composites=True), True), (dict(vis=True), False)):
+        out = tmp_path / f"x_{composites}"
+        render_labels(survey["mesh_file"], survey["cameras_file"],
+                      survey["image_folder"], survey["labels_vector_file"],
+                      out, device="cpu", **kw)
+        want = [f"img_{k:04d}.png" for k in range(4)]
+        if composites:
+            want += [f"img_{k:04d}_composite.png" for k in range(4)]
+        assert sorted(p.name for p in out.iterdir()) == sorted(want)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             render_labels(survey["mesh_file"], survey["cameras_file"],

@@ -166,6 +166,34 @@ def test_selection_on_the_ports_raster(survey):
     assert len(differ) == 2
 
 
+def test_selection_sizes_its_caps_by_a_census_at_its_defaults(survey):
+    """Caps that a view's tile lists overflow, given as the
+    ``raster_config``, raise (C9); without a ``raster_config`` the entry
+    point sizes the caps by a census of its views (on a 1M-face mesh at the
+    default scale the default caps overflow so: ``chip_smoke.py`` 11d) and
+    picks what a run at those caps picks."""
+    from geograypher_tpu_torch.cameras.metashape import MetashapeCameraSet
+    from geograypher_tpu_torch.ops.rasterize import RasterConfig
+    from geograypher_tpu_torch.parallel.planner import census_caps
+
+    small = RasterConfig(caps=(16, 16, 16, 16))
+    with pytest.raises(RuntimeError, match="overflow"):
+        sel.determine_minimum_overlapping_images(**_files(survey), device="cpu",
+                                                 raster_config=small)
+    stats = {}
+    got = sel.determine_minimum_overlapping_images(**_files(survey), device="cpu",
+                                                   stats=stats)
+    caps = stats["caps"]
+    mesh = TexturedMesh(survey["mesh_file"], transform_filename=survey["cameras_file"],
+                        device="cpu")
+    cams = MetashapeCameraSet(survey["cameras_file"], survey["image_folder"])
+    assert census_caps(mesh.view_raster_census(cams, SCALE), mesh.raster_config).caps == caps
+    assert caps[0] > small.caps[0]
+    want = sel.determine_minimum_overlapping_images(
+        **_files(survey), device="cpu", raster_config=RasterConfig(caps=caps))
+    assert got == want and len(got) >= 1
+
+
 def test_selection_needs_a_card_unless_asked_for_the_cpu(survey):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

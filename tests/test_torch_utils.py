@@ -57,8 +57,10 @@ def test_face_orders_match_jax(mesh, rows_per_bin):
     if mesh == "grid":
         verts, faces = jf.make_grid_mesh(n=23, size=4.0, z_fn=bumpy)
     else:
-        # a Delaunay TIN has hull slivers: an oversized tail to pack
-        verts, faces = jf.make_irregular_mesh(n_points=600, seed=3)
+        # a Delaunay TIN has hull slivers: an oversized tail to pack (the
+        # port's own TIN, held equal to the JAX one in
+        # tests/test_torch_camera_methods.py)
+        verts, faces = tf.make_irregular_mesh(n_points=600, seed=3)
     fv = verts[faces][..., :2]
     got, n_regular = tg.partitioned_face_order(fv, rows_per_bin, return_split=True)
     want, want_regular = jg.partitioned_face_order(fv, rows_per_bin, return_split=True)

@@ -13,11 +13,15 @@ Phases (each prints one line; any failure raises and exits nonzero):
    (f=2000) and an oblique view (f=2600, pitch 30 deg) at the main path's
    configuration, the nadir view again at ``bin_block=8`` (the
    configuration of the TPU's 8-face-unit fold), and a low oblique view
-   whose near faces fill the L2 and global candidate lists; then a
-   knife-edge probe (``knife_edge_triangles``: vertices on and within
+   whose near faces fill the L2 and global candidate lists (first the
+   front end on each: the setup kernel and the binning kernels against
+   ``setup_from_soa_plain`` and ``bin_triangles_plain``, planes as their
+   int32 words, lists, counts, face lists, overflow and census, with
+   their times, the sort's alone and their bounds, ``"front"`` lines);
+   then a knife-edge probe (``knife_edge_triangles``: vertices on and within
    1e-4 px of pixel centres, axis-aligned edges, slivers, edges longer
-   than 2^18 px) through both rasters at the main and the level-S
-   configurations; the counts kernel is timed on two label fields, one
+   than 2^18 px) through the front end and both rasters at the main and
+   the level-S configurations; the counts kernel is timed on two label fields, one
    drawn independently per pixel and one constant over 64 x 64 pixel
    patches (what a segmentation looks like); then the one-hot scan
    kernel against its plain version and the numpy scan on view 0's
@@ -30,7 +34,8 @@ Phases (each prints one line; any failure raises and exits nonzero):
    from the numpy scan's class images of the same views, then view 0
    re-run through the plain versions (bit for bit) and a small scene
    held against the numpy brute-force oracle; then each stage of one
-   view's device chain timed alone (breakdown);
+   view's device chain timed alone (breakdown, views 0, 1 and 6, each
+   view's front end held against its plain versions first);
 4. level S: the sub-tile raster configuration (``bin_block=8``,
    ``subtile=(8, 16)``) -- its three kernels against their plain versions
    on the nadir and oblique 4K views, bit for bit; the S path of
@@ -175,9 +180,13 @@ imports nothing of JAX or of the JAX package.
 
 ``--parent DIR`` names a checkout of another commit of this repository
 (for instance ``git archive`` of the parent, unpacked under ``build/``):
-the counts kernel of that tree and of this one are then timed on the same
+the counts kernel of that tree and of this one (``"ab_counts"``), and
+their front ends (``"ab_front"``: setup, binning and the whole fused
+chain of view 0, the two trees' counts equal) are then timed on the same
 saved inputs in turns parent, change, change, parent, each turn a process
-of its own started in its tree.
+of its own started in its tree.  Every phase that demands its raster
+launches also demands at least as many launches of the setup and the
+binning kernels (a path that took a plain version on the card fails).
 """
 
 from __future__ import annotations
@@ -228,7 +237,15 @@ from geograypher_tpu_torch.entrypoints.visualize import visualize
 from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.meshes import chunked, sparse
 from geograypher_tpu_torch.meshes.mesh import DEFAULT_RASTER_CONFIG, TexturedMesh
-from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
+from geograypher_tpu_torch.ops import (
+    binning,
+    face_counts,
+    face_sums,
+    onehot,
+    raster_tiles,
+    subtile,
+    tri_setup,
+)
 from geograypher_tpu_torch.ops.agg_tiled import project_image_class_counts_tiled
 from geograypher_tpu_torch.ops.aggregate import (
     accumulate_view,
@@ -250,6 +267,7 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
     setup_triangles,
     transform_to_camera,
+    tri_to_soa,
 )
 from geograypher_tpu_torch.parallel import pipeline, planner, sharding
 from geograypher_tpu_torch.parallel.planner import census_caps, census_config_of
@@ -319,6 +337,24 @@ TPU_KERNELS = {
     "B6": "geograypher_tpu/ops/subtile.py:570",
 }
 
+
+# the front end's kernels took over XLA-fused code of the JAX package
+SETUP_REPLACES = ("none: XLA-fused `setup_from_soa`, "
+                  "geograypher_tpu/ops/rasterize.py:200")
+BINNING_REPLACES = ("none: XLA key build and list cut around `jnp.sort` in "
+                    "`bin_triangles`, geograypher_tpu/ops/rasterize.py:556")
+# the setup's float operations a face (the plain version's, counted op by
+# op: transform, reciprocal, projection, edges, area, depth plane, signs,
+# box), and with the Brown-Conrady lens
+SETUP_FLOP = 140
+SETUP_FLOP_LENS = 215
+# the setup's bytes a face: 9 float32 read; 12 plane floats, 4 int32 box
+# bounds and one valid byte written
+SETUP_BYTES = 9 * 4 + 12 * 4 + 4 * 4 + 1
+# the front end's kernel-vs-plain rows by view name (``_front_vs_plain``)
+FRONT_ROWS = {}
+# the launch counts of the front end's kernels
+FRONT = ("triangle_setup", "tile_binning")
 
 # the host scan the one-hot kernel took over (both packages ran it in numpy)
 ONEHOT_REPLACES = ("none: host numpy `_as_class_image`, "
@@ -749,16 +785,103 @@ def _knife_edge_probe(cls, dev):
         raise RuntimeError("knife-edge probe: no valid face with an edge over 2^18 px")
     cfg = RasterConfig()
     cfg = dataclasses.replace(cfg, caps=_census_caps([setup], cfg)[1])
+    inputs = (tri_to_soa(tri), torch.eye(4, device=dev), torch.tensor(1.0, device=dev))
+    _front_vs_plain("knife_edge", *inputs, cfg)
     _kernel_vs_plain("knife_edge", setup, cfg, n, cls)
     base = RasterConfig(bin_block=8, l0_window=(5, 2))
     cfg_s = dataclasses.replace(base, subtile=(8, 16), s_window=(3, 2), s_block=4)
     cfg_s = dataclasses.replace(cfg_s, caps=_census_caps([setup], cfg_s)[1])
+    _front_vs_plain("knife_edge_s", *inputs, cfg_s)
     _s_kernels_vs_plain("knife_edge", setup, cfg_s, n, cls)
     _line("knife_edge", faces=n, valid=int(setup.valid.sum()),
           long_edge_faces=long_edges,
           exempt_faces=int((raster_tiles.cull_rule(setup.planes, H, W)
                             == raster_tiles.CULL_EXEMPT).sum()),
           raster_equal=True, s_raster_equal=True, s_carry_equal=True)
+
+
+def _setup_equal(a, b):
+    """Two setups equal bit for bit (planes as their int32 words)."""
+    return (torch.equal(a.planes.view(torch.int32), b.planes.view(torch.int32))
+            and torch.equal(a.bbox, b.bbox) and torch.equal(a.valid, b.valid))
+
+
+def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
+    """Both front-end kernels against their plain versions on one view,
+    bit for bit: the setup (planes, boxes, validity), then on the plain
+    setup the binning's census and its lists, counts, overflow and face
+    lists at ``cfg`` (with level S on, after its exclusion).  Times (CUDA
+    events, medians) of the wrappers, the plain versions (binning with its
+    face-list expansion), the sort alone on the kernel's own keys (the
+    library call), and the bounds: each input read once, each output
+    written once.  The row goes to ``FRONT_ROWS[name]`` and its line."""
+    got = setup_from_soa(soa, w2c, f, w, h, cfg.znear, distortion=dist)
+    want = tri_setup.setup_from_soa_plain(soa, w2c, f, w, h, cfg.znear, dist)
+    torch.cuda.synchronize()
+    if not _setup_equal(got, want):
+        bad = ((got.planes.view(torch.int32) != want.planes.view(torch.int32)).any(1)
+               | (got.bbox != want.bbox).any(0) | (got.valid != want.valid))
+        i = int(torch.nonzero(bad)[0])
+        raise RuntimeError(
+            f"setup kernel vs plain on {name}: {int(bad.sum())} faces differ; face {i}: "
+            f"{got.planes[i].tolist()} {got.bbox[:, i].tolist()} {bool(got.valid[i])} vs "
+            f"{want.planes[i].tolist()} {want.bbox[:, i].tolist()} {bool(want.valid[i])}")
+    exclude = None if cfg.subtile is None else subtile.subtile_mask8(want, cfg)
+    census = bin_triangles(want, cfg, h, w, return_census=True, exclude_blocks=exclude)
+    census_plain = binning.bin_triangles_plain(want, cfg, h, w, True, exclude)
+    binned = bin_triangles(want, cfg, h, w, exclude_blocks=exclude)
+    plain = binning.bin_triangles_plain(want, cfg, h, w, False, exclude)
+    face_lists = binned_face_lists(binned, cfg)
+    face_lists_plain = binned_face_lists(plain, cfg)
+    torch.cuda.synchronize()
+    same = (torch.equal(census, census_plain) and torch.equal(binned.overflow, plain.overflow)
+            and all(torch.equal(a, b) for a, b in zip(
+                binned.cand + binned.counts + face_lists[0] + face_lists[1],
+                plain.cand + plain.counts + face_lists_plain[0] + face_lists_plain[1])))
+    if not same:
+        raise RuntimeError(
+            f"binning kernels vs plain on {name}: census {census.tolist()} vs "
+            f"{census_plain.tolist()}, overflow {int(binned.overflow)} vs "
+            f"{int(plain.overflow)}, levels differing "
+            f"{[l for l in range(4) if not torch.equal(binned.cand[l], plain.cand[l])]}")
+    keys, _ = binning.keys(want, cfg, h, w, exclude)
+    n = soa.shape[1]
+    setup_bound_ms, setup_bound_by = _bound(
+        SETUP_BYTES * n, (SETUP_FLOP if dist is None else SETUP_FLOP_LENS) * n)
+    list_bytes = sum(4 * (c.numel() + k.numel()) for c, k in zip(binned.cand, binned.counts))
+    if cfg.bin_block > 1:
+        list_bytes += sum(4 * (c.numel() + k.numel()) for c, k in zip(*face_lists))
+    in_bytes = 17 * n + (0 if exclude is None else exclude.numel())
+    binning_bound_ms, binning_bound_by = _bound(in_bytes + list_bytes + 8, 0)
+    census_bound_ms, _ = _bound(in_bytes + 32, 0)
+    row = dict(
+        view=name, faces=n, bin_block=cfg.bin_block, l0_window=cfg.l0_window,
+        subtile=cfg.subtile, distorted=dist is not None, image=[h, w],
+        valid=int(want.valid.sum()), census=census.tolist(), caps=list(cfg.caps),
+        overflow=int(binned.overflow), keys=keys.numel(),
+        setup_max_abs_err=float((got.planes - want.planes).abs().nan_to_num(0).max()),
+        binning_max_abs_err=0,
+        setup_ms=_cuda_ms(lambda: setup_from_soa(soa, w2c, f, w, h, cfg.znear,
+                                                 distortion=dist), runs=20),
+        setup_plain_ms=_cuda_ms(lambda: tri_setup.setup_from_soa_plain(
+            soa, w2c, f, w, h, cfg.znear, dist)),
+        setup_bound_ms=setup_bound_ms, setup_bound_by=setup_bound_by,
+        binning_ms=_cuda_ms(lambda: binned_face_lists(bin_triangles(
+            want, cfg, h, w, exclude_blocks=exclude), cfg), runs=20),
+        binning_plain_ms=_cuda_ms(lambda: binned_face_lists(binning.bin_triangles_plain(
+            want, cfg, h, w, False, exclude), cfg)),
+        binning_bound_ms=binning_bound_ms, binning_bound_by=binning_bound_by,
+        census_ms=_cuda_ms(lambda: bin_triangles(want, cfg, h, w, return_census=True,
+                                                 exclude_blocks=exclude), runs=20),
+        census_plain_ms=_cuda_ms(lambda: binning.bin_triangles_plain(
+            want, cfg, h, w, True, exclude)),
+        census_bound_ms=census_bound_ms,
+        keys_ms=_cuda_ms(lambda: binning.keys(want, cfg, h, w, exclude), runs=20),
+        sort_ms=_cuda_ms(lambda: torch.sort(keys, stable=True), runs=20),
+    )
+    FRONT_ROWS[name] = row
+    _line("front", **row)
+    return row
 
 
 def _piecewise_labels(rng, h, w):
@@ -899,41 +1022,126 @@ print(json.dumps(out))
 """
 
 
+def _turns(parent_dir, script, inputs, what):
+    """``script`` run on the saved ``inputs`` in the tree at ``parent_dir``
+    and in this one, in turns parent, change, change, parent; every turn is
+    a process of its own started in its tree.  Returns {"parent": [...],
+    "change": [...]}, each turn's last line of output as JSON."""
+    path = build.BUILD_DIR / f"{what}_inputs.pt"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(inputs, path)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    result = {"parent": [], "change": []}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    try:
+        for who in ("parent", "change", "change", "parent"):
+            out = subprocess.run(
+                [sys.executable, "-c", script, str(path)], text=True, env=env,
+                cwd=parent_dir if who == "parent" else here, capture_output=True)
+            if out.returncode:
+                raise RuntimeError(f"{what} comparison, {who} turn:\n{out.stderr}")
+            result[who].append(json.loads(out.stdout.strip().splitlines()[-1]))
+    finally:
+        path.unlink()
+    result["seconds"] = round(time.perf_counter() - t0, 3)
+    return result
+
+
 def _ab_counts(parent_dir, p2f, cls, cls_piecewise, n_faces):
     """The counts wrapper of the tree at ``parent_dir`` and of this one on
     the same pix2face and label fields, in turns parent, change, change,
     parent; every turn is its own process (per field the median of 50
     timed calls, and the device time of a call's kernels)."""
-    path = build.BUILD_DIR / "ab_counts_inputs.pt"
-    torch.save({"p2f": p2f.cpu(), "iid": cls.cpu(), "piecewise": cls_piecewise.cpu(),
-                "n_faces": n_faces, "n_classes": N_CLASSES}, path)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    result = {"parent": [], "change": []}
-    here = os.path.dirname(os.path.abspath(__file__))
-    for who in ("parent", "change", "change", "parent"):
-        out = subprocess.run(
-            [sys.executable, "-c", AB_TURN, str(path)], text=True, env=env,
-            cwd=parent_dir if who == "parent" else here, capture_output=True)
-        if out.returncode:
-            raise RuntimeError(f"counts comparison, {who} turn:\n{out.stderr}")
-        result[who].append(json.loads(out.stdout.strip().splitlines()[-1]))
-    path.unlink()
+    result = _turns(parent_dir, AB_TURN, {
+        "p2f": p2f.cpu(), "iid": cls.cpu(), "piecewise": cls_piecewise.cpu(),
+        "n_faces": n_faces, "n_classes": N_CLASSES}, "ab_counts")
     _line("ab_counts", order="parent, change, change, parent", **result)
     return result
 
 
+# one turn of the front end's comparison: run with a tree's root as the
+# working directory, it times that tree's setup, binning and whole fused
+# chain on the saved view (medians of 20 timed calls) and sums its counts
+AB_FRONT_TURN = r"""
+import json, os, statistics, sys
+import torch
+from geograypher_tpu_torch.ops import rasterize as tr
+here = os.path.realpath(os.getcwd()) + os.sep
+assert os.path.realpath(tr.__file__).startswith(here), tr.__file__
+d = torch.load(sys.argv[1])
+soa, w2c, f, cls = (d[k].cuda() for k in ("soa", "w2c", "f", "cls"))
+lens = tuple(d[k].cuda() for k in ("dist8", "pcx", "pcy"))
+cfg = tr.RasterConfig(caps=tuple(d["caps"]), bin_block=d["bin_block"],
+                      l0_window=d["l0_window"], global_from=d["global_from"])
+h, w = d["h"], d["w"]
+
+
+def ms(fn, runs=20):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def chain():
+    return tr.fused_view_class_counts(soa, w2c, f, *lens, cls, w, h, cfg, soa.shape[1],
+                                      d["n_classes"], False)
+
+
+setup = tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)
+counts, over, _ = chain()
+weights = torch.arange(counts.numel(), device=counts.device).remainder(97).double() + 1
+out = dict(setup_ms=ms(lambda: tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)),
+           binning_ms=ms(lambda: tr.binned_face_lists(tr.bin_triangles(setup, cfg, h, w),
+                                                      cfg)),
+           fused_chain_ms=ms(chain), overflow=int(over),
+           counts_checksum=float((counts.double().flatten() * weights).sum()))
+print(json.dumps(out))
+"""
+
+
+def _ab_front(parent_dir, soa, b, cls, cfg):
+    """The front end of the tree at ``parent_dir`` and of this one on view
+    0 (setup, binning with its face lists, the whole fused chain), in
+    turns parent, change, change, parent, one process a turn; the two
+    trees' counts must agree."""
+    result = _turns(parent_dir, AB_FRONT_TURN, {
+        "soa": soa.cpu(), "w2c": b.world_to_cam[0].cpu(), "f": b.f[0].cpu(),
+        "dist8": b.distortion[0].cpu(), "pcx": b.cx[0].cpu(), "pcy": b.cy[0].cpu(),
+        "cls": cls.cpu(), "caps": list(cfg.caps), "bin_block": cfg.bin_block,
+        "l0_window": cfg.l0_window, "global_from": cfg.global_from,
+        "h": H, "w": W, "n_classes": N_CLASSES}, "ab_front")
+    turns = result["parent"] + result["change"]
+    if len({t["counts_checksum"] for t in turns}) != 1 or any(t["overflow"] for t in turns):
+        raise RuntimeError(f"ab_front: the trees' view-0 counts differ: {result}")
+    _line("ab_front", order="parent, change, change, parent", view=0, **result)
+    return result
+
+
+def _probe_inputs(soa, c2w, f):
+    """(w2c, f) of a probe camera on the rows' device, as setup takes them."""
+    return (torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32, device=soa.device),
+            torch.tensor(f, device=soa.device))
+
+
 def _probe_setup(soa, c2w, f, cfg):
-    w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32,
-                          device=soa.device)
-    return setup_from_soa(soa, w2c, torch.tensor(f, device=soa.device), W, H,
-                          cfg.znear)
+    return setup_from_soa(soa, *_probe_inputs(soa, c2w, f), W, H, cfg.znear)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", metavar="DIR", default=None,
-                        help="a checkout of another commit: its counts kernel is "
-                             "timed in turns with this tree's")
+                        help="a checkout of another commit: its counts kernel and "
+                             "its front end are timed in turns with this tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -978,12 +1186,12 @@ def main():
             distortion=(b.distortion[0], b.cx[0], b.cy[0]) if use_dist else None,
         ))
     nadir_c2w = nadir_camera(4.0, 2000.0, W)
-    probes = [
-        ("nadir_f2000", _probe_setup(soa, nadir_c2w, 2000.0, cfg)),
-        ("oblique_f2600_p30", _probe_setup(
-            soa, oblique_camera(4.0, 2600.0, W, pitch_deg=30.0, azimuth_deg=45.0),
-            2600.0, cfg)),
+    probe_cams = [
+        ("nadir_f2000", nadir_c2w, 2000.0),
+        ("oblique_f2600_p30",
+         oblique_camera(4.0, 2600.0, W, pitch_deg=30.0, azimuth_deg=45.0), 2600.0),
     ]
+    probes = [(name, _probe_setup(soa, c2w, f, cfg)) for name, c2w, f in probe_cams]
     census, caps = _census_caps(setups + [s for _, s in probes], cfg)
     cfg = dataclasses.replace(cfg, caps=caps)
     mesh.raster_config = cfg
@@ -1001,6 +1209,10 @@ def main():
     # the same draw served two ways: independent per pixel (above), and
     # constant over squares, as a segmentation's labels are
     cls_piecewise = torch.as_tensor(_piecewise_labels(rng, H, W), device=dev)
+    # the front end's kernels against their plain versions on the four 4K
+    # views (main configuration, bin_block=8, the low oblique view)
+    for name, c2w, f in probe_cams:
+        _front_vs_plain(name, soa, *_probe_inputs(soa, c2w, f), cfg)
     rows = [_kernel_vs_plain(name, s, cfg, n_faces, cls, cls_piecewise)
             for name, s in probes]
     ab = None
@@ -1014,19 +1226,22 @@ def main():
     soa8 = mesh._tri_soa_device(cams, 8)
     setup8 = _probe_setup(soa8, nadir_c2w, 2000.0, cfg8)
     _, caps8 = _census_caps([setup8], cfg8)
+    _front_vs_plain("nadir_f2000_bb8", soa8, *_probe_inputs(soa8, nadir_c2w, 2000.0),
+                    dataclasses.replace(cfg8, caps=caps8))
     rows.append(_kernel_vs_plain("nadir_f2000", setup8,
                                  dataclasses.replace(cfg8, caps=caps8),
                                  soa8.shape[1], cls))
     # a low oblique view: its near faces span more than an L1 window
     # (L2 list) or an L2 window (global list), so the kernel's third
     # group runs at 4K
-    near = _probe_setup(
-        soa, oblique_camera(0.1, 2000.0, W, pitch_deg=60.0, azimuth_deg=0.0),
-        2000.0, cfg)
+    near_c2w = oblique_camera(0.1, 2000.0, W, pitch_deg=60.0, azimuth_deg=0.0)
+    near = _probe_setup(soa, near_c2w, 2000.0, cfg)
     census_near, caps_near = _census_caps([near], cfg)
     if census_near[2] == 0 or census_near[3] == 0:
         raise RuntimeError(f"near probe census {census_near}: no L2 or global "
                            "candidates")
+    _front_vs_plain("near_oblique_p60", soa, *_probe_inputs(soa, near_c2w, 2000.0),
+                    dataclasses.replace(cfg, caps=caps_near))
     rows.append(_kernel_vs_plain("near_oblique_p60", near,
                                  dataclasses.replace(cfg, caps=caps_near),
                                  n_faces, cls))
@@ -1040,8 +1255,7 @@ def main():
     onehot_row = _onehot_probes(mesh, cams, seg_cams.get_image_by_index(0), dev)
 
     # -- phase 3: the main path ---------------------------------------------------
-    raster_tiles.launches = face_counts.launches = subtile.launches = 0
-    onehot.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1051,7 +1265,8 @@ def main():
     dt = time.perf_counter() - t0
     launches = {"raster_tiles": raster_tiles.launches,
                 "face_class_counts": face_counts.launches,
-                "onehot_class": onehot.launches}
+                "onehot_class": onehot.launches,
+                "triangle_setup": tri_setup.launches, "tile_binning": binning.launches}
     for name, n in launches.items():
         if n < len(cams):
             raise RuntimeError(f"{name} launched {n} times for {len(cams)} views")
@@ -1155,6 +1370,7 @@ def main():
             return setup_from_soa(soa, b.world_to_cam[0], b.f[0], W, H,
                                   cfg.znear, distortion=dist_args)
 
+        _front_vs_plain(f"view{i}", soa, b.world_to_cam[0], b.f[0], cfg, dist_args)
         s_i = setup_i()
         cand_i, counts_i = binned_face_lists(bin_triangles(s_i, cfg, H, W), cfg)
         p2f_i = raster_tiles.raster_tiles(s_i.planes, s_i.bbox, cand_i, counts_i,
@@ -1189,6 +1405,9 @@ def main():
               list_entries=[int(c.sum()) for c in counts_i])
         del img_dev, img_host, img_i
     del state
+    ab_front = None
+    if args.parent:
+        ab_front = _ab_front(args.parent, soa, b0, cls0, cfg)
     # -- phase 4: level S ------------------------------------------------------
     rows_s, launches_s = _level_s(mesh, cams, seg_cams, soa, cls, avg, info,
                                   nadir_c2w, smi)
@@ -1372,6 +1591,46 @@ def main():
              vertex_bound_ms=sums_row["vertex"]["bound_ms"],
              vertex_library_ms=sums_row["vertex"]["library_ms"]),
     ]
+    # the front end: times and bounds at the main configuration on phase 2's
+    # first two views; through the lens on view 6; at the selection's scale
+    # on 10a's views
+    front_main = [FRONT_ROWS[k] for k in ("nadir_f2000", "oblique_f2600_p30")]
+    lens = FRONT_ROWS["view6"]
+    small = [r for k, r in FRONT_ROWS.items() if k.startswith("10a")]
+    front_launches = {
+        k: (launches[k] + launches_s[k] + launches_r[k] + launches_back[k] + launches_p[k]
+            + launches_m[k] + later[k]) for k in FRONT}
+    kernels += [
+        dict(name="triangle_setup", route="cuda",
+             source="geograypher_tpu_torch/csrc/triangle_setup.cu",
+             replaces=SETUP_REPLACES, launches=front_launches["triangle_setup"],
+             max_abs_err=max(r["setup_max_abs_err"] for r in FRONT_ROWS.values()),
+             ms=mean(front_main, "setup_ms"), plain_ms=mean(front_main, "setup_plain_ms"),
+             bound_ms=mean(front_main, "setup_bound_ms"),
+             bound_by=front_main[0]["setup_bound_by"], library_ms=None,
+             lens_ms=lens["setup_ms"], lens_plain_ms=lens["setup_plain_ms"],
+             lens_bound_ms=lens["setup_bound_ms"],
+             selection_ms=mean(small, "setup_ms"),
+             selection_plain_ms=mean(small, "setup_plain_ms"),
+             selection_bound_ms=mean(small, "setup_bound_ms"),
+             views_equal=sorted(FRONT_ROWS)),
+        dict(name="tile_binning", route="cuda",
+             source="geograypher_tpu_torch/csrc/tile_binning.cu",
+             replaces=BINNING_REPLACES, launches=front_launches["tile_binning"],
+             max_abs_err=max(r["binning_max_abs_err"] for r in FRONT_ROWS.values()),
+             ms=mean(front_main, "binning_ms"), plain_ms=mean(front_main, "binning_plain_ms"),
+             bound_ms=mean(front_main, "binning_bound_ms"),
+             bound_by=front_main[0]["binning_bound_by"],
+             # the stable torch.sort inside it, alone on the key kernel's keys
+             library_ms=mean(front_main, "sort_ms"), keys_ms=mean(front_main, "keys_ms"),
+             census_ms=mean(front_main, "census_ms"),
+             census_plain_ms=mean(front_main, "census_plain_ms"),
+             census_bound_ms=mean(front_main, "census_bound_ms"),
+             selection_ms=mean(small, "binning_ms"),
+             selection_plain_ms=mean(small, "binning_plain_ms"),
+             selection_bound_ms=mean(small, "binning_bound_ms"),
+             turns=ab_front, views_equal=sorted(FRONT_ROWS)),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1415,9 +1674,9 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
     # the three kernels against their plain versions, bit for bit
     rows = [_s_kernels_vs_plain(name, s, cfg_s, n_pad, cls) for name, s in probes]
 
+    _front_vs_plain("s_nadir_f2000", soa8, *_probe_inputs(soa8, nadir_c2w, 2000.0), cfg_s)
     # the S path through the entry point
-    raster_tiles.launches = face_counts.launches = subtile.launches = 0
-    onehot.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     avg_s, info_s = mesh.aggregate_projected_images(seg_cams, config=cfg_s,
@@ -1427,7 +1686,8 @@ def _level_s(mesh, cams, seg_cams, soa, cls, avg, info, nadir_c2w, smi):
     launches = {"raster_tiles": raster_tiles.launches,
                 "face_class_counts": face_counts.launches,
                 "s_raster": subtile.launches,
-                "onehot_class": onehot.launches}
+                "onehot_class": onehot.launches,
+                "triangle_setup": tri_setup.launches, "tile_binning": binning.launches}
     for name, n in launches.items():
         if n < len(cams):
             raise RuntimeError(f"level S: {name} launched {n} times for "
@@ -1540,13 +1800,31 @@ def _sync(dev):
 def _reset_launches():
     raster_tiles.launches = face_counts.launches = subtile.launches = 0
     onehot.launches = face_sums.launches = 0
+    tri_setup.launches = binning.launches = 0
 
 
 def _launches():
     return {"raster_tiles": raster_tiles.launches,
             "face_class_counts": face_counts.launches,
             "s_raster": subtile.launches, "onehot_class": onehot.launches,
-            "face_sums": face_sums.launches}
+            "face_sums": face_sums.launches,
+            "triangle_setup": tri_setup.launches, "tile_binning": binning.launches}
+
+
+def _back(launches):
+    """The launches of the kernels behind the front end (raster, counts,
+    one-hot, sums): the counts a path's checks compare exactly."""
+    return {k: n for k, n in launches.items() if k not in FRONT}
+
+
+def _demand_front(phase, launches, n):
+    """Raise unless the setup and binning kernels launched at least ``n``
+    times each (a view sets up and bins at least once; a census, a retry
+    or a remap adds more)."""
+    short = {k: launches[k] for k in FRONT if launches[k] < n}
+    if short:
+        raise RuntimeError(f"{phase}: front-end launches {short}, expected >= {n} each "
+                           "(a path took the plain setup or binning)")
 
 
 def _timed(dev, fn):
@@ -1583,9 +1861,10 @@ def _planned_phase(mesh, cams, seg_cams, labels, n_classes, card=None,
     k = int(torch.device(dev).type == "cuda")  # CPU tensors launch nothing
     want = {"raster_tiles": n * k, "face_class_counts": n * k, "s_raster": 0,
             "onehot_class": 0, "face_sums": 0}
-    if pooled_launches != want:
+    if _back(pooled_launches) != want:
         raise RuntimeError(f"planned pooled run: launches {pooled_launches}, "
                            f"expected {want} (a retry or a stray path)")
+    _demand_front("planned pooled run", pooled_launches, n * k)
     # the streaming chain at the plan's census-sized caps, on the same views
     cover = plan.cover_config
     pooled_ref = torch.zeros((mesh.n_faces, n_classes), device=dev)
@@ -1606,8 +1885,9 @@ def _planned_phase(mesh, cams, seg_cams, labels, n_classes, card=None,
         seg_cams, use_planned=True, config=cfg))
     launches = _launches()
     want = dict(want, onehot_class=n * k)
-    if launches != want or "plan" not in info:
+    if _back(launches) != want or "plan" not in info:
         raise RuntimeError(f"planned route: launches {launches}, expected {want}")
+    _demand_front("planned route", launches, n * k)
     if not np.array_equal(info["projection_counts"], ref_count):
         raise RuntimeError("planned route: view counts differ from streaming")
     if not np.array_equal(np.isnan(avg), np.isnan(ref_avg)):
@@ -1700,8 +1980,9 @@ def _means_phase(mesh, cams, h, w, n_classes, card=None, timing=True):
     on_card = torch.device(dev).type == "cuda"
     want = {"raster_tiles": 2 * on_card, "face_class_counts": 0, "s_raster": 0,
             "onehot_class": 2 * on_card, "face_sums": 2 * on_card}
-    if launches != want:
+    if _back(launches) != want:
         raise RuntimeError(f"means path: launches {launches}, expected {want}")
+    _demand_front("means path", launches, 2 * on_card)
     (avg2, info2), _ = runs[1]
     same = all(np.array_equal(a, b, equal_nan=True) for a, b in (
         (avg, avg2), (info["summed_projections"], info2["summed_projections"]),
@@ -1857,8 +2138,7 @@ def _render_checked(survey, cfg, device=None):
     Returns (mesh, cameras, the entry point's launch counts, fields of
     the phase line)."""
     on = {} if device is None else {"device": device}
-    raster_tiles.launches = face_counts.launches = subtile.launches = 0
-    onehot.launches = 0
+    _reset_launches()
     on_card = device is None or torch.device(device).type == "cuda"
     held_gb = None
     if on_card:
@@ -1875,13 +2155,15 @@ def _render_checked(survey, cfg, device=None):
     peak_mem_gb = round(torch.cuda.max_memory_allocated() / 1e9, 3) if on_card else None
     launches = {"raster_tiles": raster_tiles.launches, "s_raster": subtile.launches,
                 "face_class_counts": face_counts.launches,
-                "onehot_class": onehot.launches}
+                "onehot_class": onehot.launches,
+                "triangle_setup": tri_setup.launches, "tile_binning": binning.launches}
     n = len(survey["names"])
     want = {"raster_tiles": n if on_card else 0, "s_raster": 0,
             "face_class_counts": 0, "onehot_class": 0}
-    if len(cams) != n or launches != want:
+    if len(cams) != n or _back(launches) != want:
         raise RuntimeError(f"render_labels: {len(cams)} cameras of {n}, launches "
                            f"{launches}, expected {want}")
+    _demand_front("render_labels", launches, n * on_card)
     files = sorted(p.name for p in survey["render_folder"].iterdir())
     if files != survey["names"]:
         raise RuntimeError(f"render_labels wrote {files}")
@@ -2089,13 +2371,15 @@ def _render_phase(folder, verts, faces, c2ws, sensors, sensor_ids, cfg, smi):
     mesh, cams, launches, fields = _render_checked(survey, cfg)
     times = _render_times(survey, mesh, cams, cfg)
     _line("5b", **fields, **times, png_zlib_level=PNG_ZLIB_LEVEL, card=smi)
-    raster_tiles.launches = face_counts.launches = onehot.launches = 0
+    _reset_launches()
     trip = _round_trip(survey, mesh, cfg)
     back = {"raster_tiles": raster_tiles.launches,
             "face_class_counts": face_counts.launches,
-            "onehot_class": onehot.launches}
-    if any(n != len(c2ws) for n in back.values()):
+            "onehot_class": onehot.launches,
+            "triangle_setup": tri_setup.launches, "tile_binning": binning.launches}
+    if any(n != len(c2ws) for n in _back(back).values()):
         raise RuntimeError(f"round trip launches {back} for {len(c2ws)} views")
+    _demand_front("round trip", back, len(c2ws))
     if "planned" not in (trip["route"] or ""):
         raise RuntimeError(f"round trip took no planned route: {trip['route']}")
     _line("5c", **trip, launches=back, card=smi)
@@ -2227,9 +2511,10 @@ def _pipeline_phase(mesh, cams, labels, n_classes, devices, card=None,
         k = int(torch.device(dev).type == "cuda")  # CPU tensors launch nothing
         want = {"raster_tiles": n * k, "face_class_counts": n * k, "s_raster": 0,
                 "onehot_class": 0, "face_sums": 0}
-        if launches != want or first["retried_views"]:
+        if _back(launches) != want or first["retried_views"]:
             raise RuntimeError(f"pipeline: launches {launches}, expected {want}, "
                                f"{first['retried_views']} views re-run")
+        _demand_front("pipeline", launches, n * k)
         if fr.shape != (mesh.n_faces, n_classes) or not np.isfinite(fr).all():
             raise RuntimeError(f"pipeline: fraction sums {fr.shape}")
         if not np.array_equal(vc, ref_count):
@@ -2592,6 +2877,7 @@ def _plain_index_run(mesh, seg, n, centres_by_view, **kwargs):
     import geograypher_tpu_torch.ops.rasterize as rasterize_mod
 
     kernel_raster, kernel_counts = rasterize_mod.raster_tiles, sparse.face_class_counts
+    kernel_setup, kernel_binning = rasterize_mod.triangle_setup, rasterize_mod.tile_binning
     pix2face_device = mesh._pix2face_device
     at_centres = {}
 
@@ -2608,6 +2894,8 @@ def _plain_index_run(mesh, seg, n, centres_by_view, **kwargs):
         return p2f
 
     rasterize_mod.raster_tiles = plain_raster
+    rasterize_mod.triangle_setup = tri_setup.setup_from_soa_plain
+    rasterize_mod.tile_binning = binning.bin_triangles_plain
     sparse.face_class_counts = face_counts.face_class_counts_plain
     mesh._pix2face_device = recording
     _reset_launches()
@@ -2615,6 +2903,8 @@ def _plain_index_run(mesh, seg, n, centres_by_view, **kwargs):
         counts, _ = sparse.aggregate_index_predictions(mesh, seg, n, **kwargs)
     finally:
         rasterize_mod.raster_tiles, sparse.face_class_counts = kernel_raster, kernel_counts
+        rasterize_mod.triangle_setup, rasterize_mod.tile_binning = (kernel_setup,
+                                                                    kernel_binning)
         del mesh._pix2face_device
     if any(_launches().values()):
         raise RuntimeError(f"the plain detection run launched {_launches()}")
@@ -2677,8 +2967,9 @@ def _detection_phase(folder, verts, faces, c2ws, sensors, sensor_ids, cfg, w=W, 
     on_card = dev.type == "cuda"
     want = {"raster_tiles": len(cams) * on_card, "face_class_counts": len(cams) * on_card,
             "s_raster": 0, "onehot_class": 0, "face_sums": 0}
-    if launches != want:
+    if _back(launches) != want:
         raise RuntimeError(f"project_detections launches {launches}, expected {want}")
+    _demand_front("project_detections", launches, len(cams) * on_card)
     saved = scipy.sparse.load_npz(folder / "counts.npz")
     if saved.shape != (mesh.n_faces, n_det) or not _csr_equal(saved, counts):
         raise RuntimeError(f"project_detections saved {saved.shape}, {n_det} detections")
@@ -2894,6 +3185,7 @@ def _dtm_phase(folder, survey, verts, cfg, dev, card=None):
     if launches["raster_tiles"] != (n_views + n_float) * on_card:
         raise RuntimeError(f"render_height_masks launches {launches} for "
                            f"{n_views} + {n_float} views")
+    _demand_front("render_height_masks", launches, (n_views + n_float) * on_card)
     # each mask against its view's float render: equal to the render
     # thresholded but where a face's vertices straddle a threshold (the
     # mask's face takes its vertices' majority class, the float render their
@@ -2944,6 +3236,7 @@ def _dtm_phase(folder, survey, verts, cfg, dev, card=None):
     if any(agg_launches[k] != n_views * on_card
            for k in ("raster_tiles", "face_class_counts", "onehot_class")):
         raise RuntimeError(f"aggregate_images launches {agg_launches} for {n_views} views")
+    _demand_front("aggregate_images (DTM)", agg_launches, n_views * on_card)
     truth = np.zeros(len(hag))
     truth[hag >= HEIGHT_THRESHOLDS[0]] = 1
     truth[hag >= HEIGHT_THRESHOLDS[1]] = 2
@@ -3352,6 +3645,13 @@ def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
     cfg = mesh.raster_config = census_caps(census, mesh.raster_config)
     caps = cfg.caps
     on_card = torch.device(dev).type == "cuda"
+    if on_card and phase == "10a":
+        # the front end's kernels against their plain versions at this scale
+        for i in (0, 1):
+            b = cams.get_camera_batch([i], image_scale=scale, device=dev)
+            _front_vs_plain(f"10a_view{i}", mesh._tri_soa_device(cams, cfg.bin_block),
+                            b.world_to_cam[0], b.f[0], cfg, h=b.image_height,
+                            w=b.image_width)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     stats = {}
@@ -3369,8 +3669,9 @@ def _selection_run(mesh_file, cameras_file, scale, dev, card=None, phase="10a",
     n = len(cams)
     want = {"raster_tiles": n * on_card, "face_class_counts": n * on_card,
             "s_raster": 0, "onehot_class": 0, "face_sums": 0}
-    if launches != want:
+    if _back(launches) != want:
         raise RuntimeError(f"{phase}: launches {launches}, expected {want}")
+    _demand_front(phase, launches, n * on_card)
     vis = stats["visibility"]
     sensor = cams.sensors[cams.sensor_IDs[0]]
     held = list(range(0, n, plain_every))
@@ -3811,6 +4112,7 @@ def _colmap_phase(folder, mesh, sensors, dev, card=None, n_views=PIPELINE_VIEWS,
     want = n_views * on_card
     if launches["raster_tiles"] < 2 * want or launches["face_class_counts"] < 2 * want:
         raise RuntimeError(f"11a: launches {launches} for 2 x {n_views} views")
+    _demand_front("11a", launches, 2 * want)
     # the two sets' rasters in the aggregation's lens model, view by view, at
     # caps from their census
     sets = (colmap, reference)
@@ -3912,6 +4214,8 @@ def _rig_phase(folder, dev, card=None, n_stations=RIG_STATIONS, sensor=RIG_SENSO
         raise RuntimeError(f"11b: survey launches {survey_launches} for {n_views} views")
     if launches["raster_tiles"] < want or launches["face_class_counts"] < want:
         raise RuntimeError(f"11b: launches {launches} for {n_views} views")
+    _demand_front("11b", launches, want)
+    _demand_front("11b survey", survey_launches, want)
     face_classes = find_argmax_nonzero_value(torch.as_tensor(averaged)).numpy()
     truth = survey["face_labels"].astype(float)
     seen = np.isfinite(face_classes)
@@ -3970,6 +4274,7 @@ def _composite_phase(folder, survey, c2ws, sensors, sensor_ids, caps_r, dev, car
     launches = _launches()
     if launches["raster_tiles"] != n_views * (not on):
         raise RuntimeError(f"11c: launches {launches} for {n_views} views")
+    _demand_front("11c", launches, n_views * (not on))
     comp_ms = []
     for name in names:
         mask = read_image_or_numpy(folder / "renders" / name).astype(float)
@@ -4046,6 +4351,7 @@ def _batch_phase(mesh, cams, cfg, caps_r, selection_folder, selection_picks, dev
     p2f, batch_s = _timed(dev, lambda: rasterize_batch(
         tri, batch.world_to_cam, batch.f, batch.image_width, batch.image_height, cfg_b))
     launches = _launches()
+    _demand_front("11d rasterize_batch", launches, n * (torch.device(dev).type == "cuda"))
     for i in range(n):
         one = rasterize_triangles(transform_to_camera(tri, batch.world_to_cam[i]),
                                   batch.f[i], batch.image_width, batch.image_height,

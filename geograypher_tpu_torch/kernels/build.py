@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # argtypes of every C entry point: an undeclared pointer would be cut to
 # 32 bits by ctypes
 SIGNATURES = {
@@ -55,6 +56,16 @@ SIGNATURES = {
     # keys, keys_64, values, n, H, W, tw_shift, n_segments, n_channels,
     # scratch, sums, counts, stream
     "gg_face_sums": [_P, _I, _P, _I64, _I, _I, _I, _I64, _I, _P, _P, _P, _P],
+    # soa, n, w2c, f_dev, f_host, inv_ff_host, dist, pcx_dev, pcy_dev,
+    # half_w, half_h, znear, W, H, planes, bbox, valid, stream
+    "gg_triangle_setup": [_P, _I64, _P, _P, _F, _F, _P, _P, _P, _F, _F, _F, _I, _I,
+                          _P, _P, _P, _P],
+    # bbox, valid, exclude, n_units, bin_block, global_from, (th, tw, ntx) x 3,
+    # n_tiles x 3, wy0, wx0, keys, stats, stream
+    "gg_tile_binning_keys": [_P, _P, _P, _I64, _I, _I64] + [_I] * 14 + [_P] * 3,
+    # sorted, order, n_keys, slots, bin_block, n_tiles x 4, caps x 4, (cand,
+    # counts, face_cand, face_counts) x 4, census_only, stats, stream
+    "gg_tile_binning_lists": [_P, _P, _I64, _I, _I] + [_I] * 8 + [_P] * 16 + [_I, _P, _P],
     # n, n_segments, n_channels -> bytes
     "gg_face_sums_scratch_bytes": [_I64, _I64, _I],
 }

@@ -12,12 +12,21 @@ import numpy as np
 import pytest
 import torch
 
-from geograypher_tpu_torch.ops import face_counts, face_sums, onehot, raster_tiles, subtile
+from geograypher_tpu_torch.ops import (
+    binning,
+    face_counts,
+    face_sums,
+    onehot,
+    raster_tiles,
+    subtile,
+    tri_setup,
+)
 from geograypher_tpu_torch.ops import rasterize as tr
 from geograypher_tpu_torch.utils.fixtures import (
     gather_tri_verts,
     knife_edge_triangles,
     make_grid_mesh,
+    nadir_camera,
     oblique_camera,
 )
 
@@ -587,3 +596,154 @@ def test_assembly_on_the_card_equals_the_plain_assembly(cuda, tmp_path):
         a, b = (read_geotiff(tmp_path / f"{name}_{t}.tif").data for t in ("card", "plain"))
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+# -- the front end: triangle setup and tile binning --------------------------
+
+FRONT_DIST8 = [0.02, -0.01, 0.0, 0.0, 1e-3, 0.0, 0.0, 0.0]
+
+
+def front_view(device, view):
+    """(rows, w2c, f, w, h, distortion) of a small bench-suite scene: 3192
+    faces (a multiple of 8, not of 32) seen nadir, oblique, through a
+    Brown-Conrady lens, or from a low oblique camera whose near faces fill
+    the L2 and global lists (at 1280 x 720)."""
+    verts, faces = make_grid_mesh(
+        n=41, size=4.0, z_fn=lambda x, y: 0.2 * np.sin(3 * x) * np.cos(2 * y))
+    tri = gather_tri_verts(verts, faces)[:3192]
+    rows = tr.tri_to_soa(torch.as_tensor(tri, dtype=torch.float32)).to(device)
+    w, h, f, dist = 320, 200, 180.0, None
+    if view == "nadir":
+        c2w = nadir_camera(4.0, f, w)
+    elif view == "low_oblique":
+        w, h, f = 1280, 720, 720.0
+        c2w = oblique_camera(0.3, f, w, pitch_deg=70.0, azimuth_deg=0.0)
+    else:
+        c2w = oblique_camera(3.0, f, w, pitch_deg=32.0, azimuth_deg=135.0)
+    if view == "brown_conrady":
+        dist = (torch.tensor(FRONT_DIST8, device=device), torch.tensor(1.5, device=device),
+                torch.tensor(-2.0, device=device))
+    w2c = torch.as_tensor(np.linalg.inv(c2w), dtype=torch.float32, device=device)
+    return rows, w2c, torch.tensor(f, device=device), w, h, dist
+
+
+def assert_setup_equal(got, want):
+    """Planes bit for bit (their int32 views), boxes and validity equal."""
+    assert torch.equal(got.planes.view(torch.int32), want.planes.view(torch.int32))
+    assert torch.equal(got.bbox, want.bbox) and torch.equal(got.valid, want.valid)
+
+
+def assert_binning_equal(setup, cfg, h, w, exclude=None):
+    """The binning kernels against the plain version: the census, then the
+    lists, counts, overflow and face lists at census-sized caps and at
+    half of them (where lists overflow).  Returns the census."""
+    census = tr.bin_triangles(setup, cfg, h, w, return_census=True, exclude_blocks=exclude)
+    want = binning.bin_triangles_plain(setup, cfg, h, w, True, exclude)
+    torch.cuda.synchronize()
+    assert census.dtype == torch.int64 and torch.equal(census, want)
+    overflows = []
+    for caps in ([c + 8 for c in census.tolist()], [max(1, c // 2) for c in census.tolist()]):
+        cfg_c = dataclasses.replace(cfg, caps=tuple(caps))
+        got = tr.bin_triangles(setup, cfg_c, h, w, exclude_blocks=exclude)
+        plain = binning.bin_triangles_plain(setup, cfg_c, h, w, False, exclude)
+        face_cand, face_counts_ = tr.binned_face_lists(plain, cfg_c)
+        torch.cuda.synchronize()
+        for lvl in range(4):
+            assert torch.equal(got.cand[lvl], plain.cand[lvl])
+            assert torch.equal(got.counts[lvl], plain.counts[lvl])
+            assert torch.equal(got.face_cand[lvl], face_cand[lvl])
+            assert torch.equal(got.face_counts[lvl], face_counts_[lvl])
+        assert got.overflow.dtype == torch.int64 and torch.equal(got.overflow, plain.overflow)
+        overflows.append(int(got.overflow))
+    assert overflows[0] == 0 and (overflows[1] > 0 or not census.any())
+    return census
+
+
+FRONT_CONFIGS = {
+    "main": tr.RasterConfig(),
+    "bin_block8": tr.RasterConfig(bin_block=8, l0_window=(5, 2)),
+    "global_from": tr.RasterConfig(global_from=2000),
+    "level_s": tr.RasterConfig(bin_block=8, l0_window=(5, 2), subtile=(8, 16)),
+}
+
+
+@pytest.mark.parametrize("view", ["nadir", "oblique", "brown_conrady", "low_oblique"])
+@pytest.mark.parametrize("config", sorted(FRONT_CONFIGS))
+def test_front_kernels_match_plain(cuda, view, config):
+    """The setup kernel and the binning kernels bit-equal to their plain
+    versions on each view and configuration (bin_block 8 with partly
+    invalid blocks, global_from, level S's exclusion), census included;
+    each wrapper call launches its kernels once."""
+    rows, w2c, f, w, h, dist = front_view(cuda, view)
+    before = (tri_setup.launches, binning.launches)
+    got = tr.setup_from_soa(rows, w2c, f, w, h, distortion=dist)
+    want = tri_setup.setup_from_soa_plain(rows, w2c, f, w, h, distortion=dist)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+    cfg = FRONT_CONFIGS[config]
+    exclude = subtile.subtile_mask8(want, cfg) if cfg.subtile else None
+    census = assert_binning_equal(want, cfg, h, w, exclude)
+    assert (tri_setup.launches, binning.launches) == (before[0] + 1, before[1] + 3)
+    if cfg.bin_block > 1:
+        blocks = want.valid.reshape(-1, cfg.bin_block)
+        assert (blocks.any(1) & ~blocks.all(1)).any()  # partly invalid blocks
+    if view == "low_oblique" and config == "main":
+        assert census[2] > 0 and census[3] > 0
+    if config == "global_from":
+        assert census[3] > 0
+
+
+def test_front_kernels_on_the_knife_edge_scene(cuda):
+    """``knife_edge_triangles`` (vertices on pixel centres, slivers, edges
+    over 2^18 px): setup and binning bit-equal to their plain versions."""
+    w, h = 1280, 720
+    tri = knife_edge_triangles(w, h, n_patches=4, patch_cells=30, n_small=2000,
+                               n_slivers=500, n_long=20, max_sliver=600)
+    rows = tr.tri_to_soa(torch.as_tensor(tri, device=cuda))
+    eye = torch.eye(4, device=cuda)
+    got = tr.setup_from_soa(rows, eye, torch.tensor(1.0, device=cuda), w, h)
+    want = tri_setup.setup_from_soa_plain(rows, eye, torch.tensor(1.0, device=cuda), w, h)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+    assert_binning_equal(want, tr.RasterConfig(), h, w)
+
+
+def test_setup_kernel_with_a_host_focal_length(cuda):
+    """``f`` as a Python number, with and without the lens: the kernel
+    takes it as PyTorch does (float32, and the lens bound divided by a
+    multiply with the float32 reciprocal of f * f)."""
+    rows, w2c, f, w, h, dist = front_view(cuda, "brown_conrady")
+    for lens in (None, dist):
+        got = tr.setup_from_soa(rows, w2c, 180.0, w, h, distortion=lens)
+        want = tri_setup.setup_from_soa_plain(rows, w2c, 180.0, w, h, distortion=lens)
+        torch.cuda.synchronize()
+        assert_setup_equal(got, want)
+
+
+def test_setup_kernel_refuses_float64(cuda):
+    """float64 rows on the card raise; they never take the plain version."""
+    rows, w2c, f, w, h, _ = front_view(cuda, "nadir")
+    before = tri_setup.launches
+    with pytest.raises(ValueError):
+        tr.setup_from_soa(rows.double(), w2c, f, w, h)
+    with pytest.raises(ValueError):
+        tr.setup_from_soa(rows, w2c.double(), f, w, h)
+    assert tri_setup.launches == before
+
+
+def test_front_end_reads_nothing_back(cuda):
+    """Setup and binning (lists and census, level S's exclusion included)
+    read nothing back to the host."""
+    rows, w2c, f, w, h, dist = front_view(cuda, "brown_conrady")
+    cfg = dataclasses.replace(FRONT_CONFIGS["level_s"], caps=(512, 128, 64, 64))
+    tr.bin_all(tr.setup_from_soa(rows, w2c, f, w, h, distortion=dist), cfg, h, w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        setup = tr.setup_from_soa(rows, w2c, f, w, h, distortion=dist)
+        binned, su = tr.bin_all(setup, cfg, h, w)
+        tr.binned_face_lists(binned, cfg)
+        tr.bin_triangles(setup, cfg, h, w, return_census=True, exclude_blocks=su.s_mask8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(binned.overflow) == 0

@@ -53,6 +53,30 @@ def oblique_scene():
     return tri, np.linalg.inv(c2w).astype(np.float32), 90.0, 160, 96
 
 
+EDGE_W, EDGE_H, EDGE_F = 160, 96, 90.0
+
+
+def edge_scene(seed=3, n=400):
+    """(F, 3, 3) float32 camera-frame faces, most in front of a camera at
+    the origin, with eighths that straddle the near plane, repeat a vertex
+    (degenerate), lie off screen, have a vertex 1e-6 past ``znear`` (its
+    projection past 2^30 px), lie behind the camera, and have a vertex a
+    million times off axis (past the lens' injective domain)."""
+    rng = np.random.default_rng(seed)
+    c = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.6, 0.6, n),
+                  rng.uniform(1, 4, n)], 1)
+    tri = c[:, None, :] + rng.normal(0, 0.15, (n, 3, 3))
+    k = n // 8
+    tri[:k, 0, 2] = -0.5
+    tri[k:2 * k, 2] = tri[k:2 * k, 1]
+    tri[2 * k:3 * k, :, 0] += 50.0
+    tri[3 * k:4 * k, 0, 2] = 2e-6
+    tri[3 * k:4 * k, 0, 0] = 100.0
+    tri[4 * k:5 * k, :, 2] = -2.0
+    tri[5 * k:6 * k, 1, :2] *= 1e6
+    return tri.astype(np.float32)
+
+
 def both_setups(tri, w2c, f, w, h, distorted):
     """(JAX setup, port setup) of one view.  The JAX side runs op by op:
     under jit XLA fuses the distortion polynomial and contracts its
@@ -94,9 +118,16 @@ def as_torch_setup(js):
     )
 
 
-@pytest.mark.parametrize("distorted", [False, True])
-def test_setup_from_soa_matches_jax(distorted):
-    tri, w2c, f, w, h = oblique_scene()
+@pytest.mark.parametrize("distorted,scene", [
+    pytest.param(False, "oblique", id="False"), pytest.param(True, "oblique", id="True"),
+    pytest.param(False, "edge", id="edge-False"), pytest.param(True, "edge", id="edge-True"),
+])
+def test_setup_from_soa_matches_jax(distorted, scene):
+    if scene == "oblique":
+        tri, w2c, f, w, h = oblique_scene()
+    else:  # near-plane straddlers, degenerate, off-screen, past 2^30 px
+        tri, w2c, f = edge_scene(), np.eye(4, dtype=np.float32), EDGE_F
+        w, h = EDGE_W, EDGE_H
     js, ts = both_setups(tri, w2c, f, w, h, distorted)
     np.testing.assert_array_equal(ts.valid.numpy(), np.asarray(js.valid))
     assert ts.valid.any() and not ts.valid.all()
@@ -118,7 +149,7 @@ def test_setup_from_soa_matches_jax(distorted):
 
 @pytest.mark.parametrize(
     "bin_block,global_from,l0_window",
-    [(1, None, 2), (8, None, (5, 2)), (8, 600, 2)],
+    [(1, None, 2), (8, None, (5, 2)), (8, 600, 2), (1, None, (5, 2)), (1, 601, 3)],
 )
 def test_bin_triangles_matches_jax(bin_block, global_from, l0_window):
     tri, w2c, f, w, h = oblique_scene()

@@ -16,12 +16,15 @@ Phases (each prints one line; any failure raises and exits nonzero):
    whose near faces fill the L2 and global candidate lists (first the
    front end on each: the setup kernel and the binning kernels against
    ``setup_from_soa_plain`` and ``bin_triangles_plain``, planes as their
-   int32 words, lists, counts, face lists, overflow and census, with
-   their times, the sort's alone and their bounds, ``"front"`` lines);
-   then a knife-edge probe (``knife_edge_triangles``: vertices on and within
-   1e-4 px of pixel centres, axis-aligned edges, slivers, edges longer
-   than 2^18 px) through the front end and both rasters at the main and
-   the level-S configurations; the counts kernel is timed on two label fields, one
+   int32 words, lists, counts, face lists, overflow and census, two
+   binning runs equal, with their times, each kernel's device time by
+   name and their bounds, ``"front"`` lines); then a knife-edge probe
+   (``knife_edge_triangles``: vertices on and within 1e-4 px of pixel
+   centres, axis-aligned edges, slivers, edges longer than 2^18 px)
+   through the front end and both rasters at the main and the level-S
+   configurations; two binning probes (``"binning_probe"``): tile lists
+   longer than the cut kernel's shared sort (``crowded_tile_triangles``)
+   and an 8192^2 grid past the count kernel's shared histogram; the counts kernel is timed on two label fields, one
    drawn independently per pixel and one constant over 64 x 64 pixel
    patches (what a segmentation looks like); then the one-hot scan
    kernel against its plain version and the numpy scan on view 0's
@@ -181,8 +184,8 @@ imports nothing of JAX or of the JAX package.
 ``--parent DIR`` names a checkout of another commit of this repository
 (for instance ``git archive`` of the parent, unpacked under ``build/``):
 the counts kernel of that tree and of this one (``"ab_counts"``), and
-their front ends (``"ab_front"``: setup, binning and the whole fused
-chain of view 0, the two trees' counts equal) are then timed on the same
+their front ends (``"ab_front"``: setup, binning, the census and the
+whole fused chain of view 0, the two trees' counts equal) are then timed on the same
 saved inputs in turns parent, change, change, parent, each turn a process
 of its own started in its tree.  Every phase that demands its raster
 launches also demands at least as many launches of the setup and the
@@ -292,6 +295,7 @@ from geograypher_tpu_torch.utils.example_data import (
 )
 from geograypher_tpu_torch.utils.fixtures import (
     brute_force_pix2face,
+    crowded_tile_triangles,
     gather_tri_verts,
     knife_edge_triangles,
     make_grid_mesh,
@@ -355,6 +359,22 @@ SETUP_BYTES = 9 * 4 + 12 * 4 + 4 * 4 + 1
 FRONT_ROWS = {}
 # the launch counts of the front end's kernels
 FRONT = ("triangle_setup", "tile_binning")
+# the front end's kernels as the profiler names them: the setup's, the
+# binning's (the census runs the first three)
+SETUP_KERNEL = "triangle_setup_kernel"
+BINNING_KERNELS = ("Memset", "count_kernel", "scan_kernel", "scatter_kernel", "cut_kernel",
+                   "cut_long_kernel")
+# the binning probes: crowded tile lists (longer than a warp of the cut
+# kernels sorts, ids spread over several bitmap windows) at 4K, and a view
+# of the bench mesh on a grid past the count kernel's shared histogram
+CROWDED_SCATTER = 200_000
+BIG_GRID_SIDE = 8192
+# csrc/tile_binning.cu's longest list a warp sorts (kMidSortMax) and the
+# most tiles its count kernel counts in shared memory (kMaxSharedBins)
+WARP_SORT_MAX = 512
+SHARED_HISTOGRAM_BINS = 57344
+# bytes written between profiled calls to evict the card's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
 
 # the host scan the one-hot kernel took over (both packages ran it in numpy)
 ONEHOT_REPLACES = ("none: host numpy `_as_class_image`, "
@@ -434,34 +454,46 @@ def _ab_ms(fn_a, fn_b, runs=5):
     return ((ta1 + ta2) / 2, abs(ta1 - ta2)), ((tb1 + tb2) / 2, abs(tb1 - tb2))
 
 
-def _profile(fn, runs=5):
+def _profile(fn, runs=5, flush=False):
     """``fn`` run ``runs`` times under ``torch.profiler`` after a warm-up:
     (device busy share of the window, {kernel: device ms per run}, top
-    10), or (None, {}) when the trace holds no device time."""
+    10), or (None, {}) when the trace holds no device time (a trace
+    that comes back without it, as some do on the card, is taken again,
+    up to three times).  With ``flush`` each call is preceded by a fill
+    of ``L2_FLUSH_BYTES`` (its kernel in the trace, its time in the busy
+    share), so that each call reads its inputs from HBM, not from the L2
+    the call before left them in."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    evict = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+             if flush else None)
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(runs):
-                fn()
-            end.record()
-            end.synchronize()
-    except RuntimeError:  # a card without profiler access: not measured
+    for _ in range(3):
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(runs):
+                    if flush:
+                        evict.fill_(1)
+                    fn()
+                end.record()
+                end.synchronize()
+        except RuntimeError:  # a card without profiler access: not measured
+            return None, {}
+        kernels = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", 0) or 0
+            if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = ev.key[:60]
+                kernels[name] = kernels.get(name, 0.0) + us / 1e3 / runs
+        if kernels:
+            break
+    else:
         return None, {}
     wall_ms = start.elapsed_time(end)
-    kernels = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            name = ev.key[:60]
-            kernels[name] = kernels.get(name, 0.0) + us / 1e3 / runs
-    if not kernels:
-        return None, {}
     busy = sum(kernels.values()) * runs / wall_ms
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
     return busy, top
@@ -569,6 +601,21 @@ def _device_ms(fn, runs=10):
     None when the trace holds no device time)."""
     _, kernels = _profile(fn, runs)
     return sum(kernels.values()) if kernels else None
+
+
+def _device_by_name(fn, names, runs=5):
+    """Device milliseconds a call of the kernels whose profiler names hold
+    each of ``names`` ({name: ms}; None when the trace holds no device
+    time), over ``runs`` calls of ``fn``, the L2 evicted before each."""
+    _, kernels = _profile(fn, runs, flush=True)
+    if not kernels:
+        return None
+    return {n: sum(ms for k, ms in kernels.items() if n in k) for n in names}
+
+
+def _binning_outputs(binned):
+    return (binned.cand + binned.counts + (binned.face_cand or ())
+            + (binned.face_counts or ()) + (binned.overflow,))
 
 
 def _counts_vs_plain(name, p2f, cls, n_faces, prefix="counts_", device_time=False):
@@ -800,6 +847,38 @@ def _knife_edge_probe(cls, dev):
           raster_equal=True, s_raster_equal=True, s_carry_equal=True)
 
 
+def _binning_probes(soa, cfg, dev):
+    """Phase 2's binning probes, each at census-sized caps and at half of
+    the census (lists past their caps), bit-equal to the plain version
+    (``_front_vs_plain``): ``crowded_tile_triangles`` at 4K, whose L0 and
+    global lists are longer than a warp sorts (``WARP_SORT_MAX``), their ids
+    spread over several bitmap windows; and the bench mesh seen nadir on a
+    ``BIG_GRID_SIDE``^2 grid, more tiles than the count kernel's shared
+    histogram holds (``SHARED_HISTOGRAM_BINS``)."""
+    tri = torch.as_tensor(crowded_tile_triangles(W, H, n_scatter=CROWDED_SCATTER),
+                          device=dev)
+    crowded = (tri_to_soa(tri), torch.eye(4, device=dev), torch.tensor(1.0, device=dev),
+               RasterConfig(), H, W)
+    side = BIG_GRID_SIDE
+    f_big = 2000.0 * side / W
+    big = (soa, *_probe_inputs(soa, nadir_camera(4.0, f_big, side), f_big), cfg, side, side)
+    for name, (rows, w2c, f, base, h, w) in (("crowded", crowded), ("grid_8192", big)):
+        setup = setup_from_soa(rows, w2c, f, w, h, base.znear)
+        census = bin_triangles(setup, base, h, w, return_census=True).tolist()
+        tiles = sum(a * b for a, b in base.grids(h, w)) + 1
+        if name == "crowded" and min(census[0], census[3]) <= WARP_SORT_MAX:
+            raise RuntimeError(f"crowded probe census {census}: no list past "
+                               f"{WARP_SORT_MAX}")
+        if name == "grid_8192" and tiles <= SHARED_HISTOGRAM_BINS:
+            raise RuntimeError(f"grid probe: {tiles} tiles fit the shared histogram")
+        for tag, caps in (("", [int(math.ceil(c * CAP_MARGIN)) + 8 for c in census]),
+                          ("_half", [max(1, c // 2) for c in census])):
+            row = _front_vs_plain(name + tag, rows, w2c, f,
+                                  dataclasses.replace(base, caps=tuple(caps)), h=h, w=w)
+            _line("binning_probe", view=name + tag, tiles=tiles, census=census,
+                  caps=caps, overflow=row["overflow"], lists_equal=True, runs_equal=True)
+
+
 def _setup_equal(a, b):
     """Two setups equal bit for bit (planes as their int32 words)."""
     return (torch.equal(a.planes.view(torch.int32), b.planes.view(torch.int32))
@@ -810,11 +889,12 @@ def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
     """Both front-end kernels against their plain versions on one view,
     bit for bit: the setup (planes, boxes, validity), then on the plain
     setup the binning's census and its lists, counts, overflow and face
-    lists at ``cfg`` (with level S on, after its exclusion).  Times (CUDA
-    events, medians) of the wrappers, the plain versions (binning with its
-    face-list expansion), the sort alone on the kernel's own keys (the
-    library call), and the bounds: each input read once, each output
-    written once.  The row goes to ``FRONT_ROWS[name]`` and its line."""
+    lists at ``cfg`` (with level S on, after its exclusion), and a second
+    binning run equal to the first.  Times (CUDA events, medians) of the
+    wrappers and the plain versions (binning with its face-list
+    expansion), the device time of each kernel by name (profiler, the L2
+    evicted before each call), and the bounds: each input read once, each
+    output written once.  The row goes to ``FRONT_ROWS[name]`` and its line."""
     got = setup_from_soa(soa, w2c, f, w, h, cfg.znear, distortion=dist)
     want = tri_setup.setup_from_soa_plain(soa, w2c, f, w, h, cfg.znear, dist)
     torch.cuda.synchronize()
@@ -844,7 +924,20 @@ def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
             f"{census_plain.tolist()}, overflow {int(binned.overflow)} vs "
             f"{int(plain.overflow)}, levels differing "
             f"{[l for l in range(4) if not torch.equal(binned.cand[l], plain.cand[l])]}")
-    keys, _ = binning.keys(want, cfg, h, w, exclude)
+    again = bin_triangles(want, cfg, h, w, exclude_blocks=exclude)
+    census_again = bin_triangles(want, cfg, h, w, return_census=True, exclude_blocks=exclude)
+    torch.cuda.synchronize()
+    if not (torch.equal(census, census_again) and all(
+            torch.equal(a, b) for a, b in zip(_binning_outputs(binned),
+                                              _binning_outputs(again)))):
+        raise RuntimeError(f"binning kernels on {name}: two runs differ")
+    by_name = _device_by_name(
+        lambda: (setup_from_soa(soa, w2c, f, w, h, cfg.znear, distortion=dist),
+                 bin_triangles(want, cfg, h, w, exclude_blocks=exclude)),
+        (SETUP_KERNEL,) + BINNING_KERNELS)
+    census_by_name = _device_by_name(
+        lambda: bin_triangles(want, cfg, h, w, return_census=True, exclude_blocks=exclude),
+        BINNING_KERNELS[:3])
     n = soa.shape[1]
     setup_bound_ms, setup_bound_by = _bound(
         SETUP_BYTES * n, (SETUP_FLOP if dist is None else SETUP_FLOP_LENS) * n)
@@ -858,7 +951,7 @@ def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
         view=name, faces=n, bin_block=cfg.bin_block, l0_window=cfg.l0_window,
         subtile=cfg.subtile, distorted=dist is not None, image=[h, w],
         valid=int(want.valid.sum()), census=census.tolist(), caps=list(cfg.caps),
-        overflow=int(binned.overflow), keys=keys.numel(),
+        overflow=int(binned.overflow), runs_equal=True,
         setup_max_abs_err=float((got.planes - want.planes).abs().nan_to_num(0).max()),
         binning_max_abs_err=0,
         setup_ms=_cuda_ms(lambda: setup_from_soa(soa, w2c, f, w, h, cfg.znear,
@@ -876,8 +969,12 @@ def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
         census_plain_ms=_cuda_ms(lambda: binning.bin_triangles_plain(
             want, cfg, h, w, True, exclude)),
         census_bound_ms=census_bound_ms,
-        keys_ms=_cuda_ms(lambda: binning.keys(want, cfg, h, w, exclude), runs=20),
-        sort_ms=_cuda_ms(lambda: torch.sort(keys, stable=True), runs=20),
+        # device ms a call by kernel name (None: the trace held no device time)
+        setup_device_ms=by_name and by_name[SETUP_KERNEL],
+        binning_device_ms=by_name and sum(by_name[k] for k in BINNING_KERNELS),
+        binning_device_kernels=by_name and {k: by_name[k] for k in BINNING_KERNELS},
+        census_device_ms=census_by_name and sum(census_by_name.values()),
+        census_device_kernels=census_by_name,
     )
     FRONT_ROWS[name] = row
     _line("front", **row)
@@ -959,7 +1056,11 @@ def _onehot_probes(mesh, cams, onehot32, dev):
             row[name] = dict(
                 ms=_cuda_ms(lambda: onehot.onehot_to_class(img)),
                 plain_ms=_cuda_ms(lambda: onehot.onehot_to_class_plain(img)),
-                bound_ms=_bound(n_bytes, 0)[0])
+                bound_ms=_bound(n_bytes, 0)[0],
+                # device ms a call by kernel name on view 0's image (profiler)
+                device_kernels=_profile(lambda: onehot.onehot_to_class(img))[1] or None)
+            row[name]["device_ms"] = (row[name]["device_kernels"]
+                                      and sum(row[name]["device_kernels"].values()))
         del img
         if not accept:
             _check_refused_takes_means(name, mesh, cams, image)
@@ -1061,8 +1162,9 @@ def _ab_counts(parent_dir, p2f, cls, cls_piecewise, n_faces):
 
 
 # one turn of the front end's comparison: run with a tree's root as the
-# working directory, it times that tree's setup, binning and whole fused
-# chain on the saved view (medians of 20 timed calls) and sums its counts
+# working directory, it times that tree's setup, binning, census and whole
+# fused chain on the saved view (medians of 20 timed calls) and sums its
+# counts
 AB_FRONT_TURN = r"""
 import json, os, statistics, sys
 import torch
@@ -1103,6 +1205,7 @@ weights = torch.arange(counts.numel(), device=counts.device).remainder(97).doubl
 out = dict(setup_ms=ms(lambda: tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)),
            binning_ms=ms(lambda: tr.binned_face_lists(tr.bin_triangles(setup, cfg, h, w),
                                                       cfg)),
+           census_ms=ms(lambda: tr.bin_triangles(setup, cfg, h, w, return_census=True)),
            fused_chain_ms=ms(chain), overflow=int(over),
            counts_checksum=float((counts.double().flatten() * weights).sum()))
 print(json.dumps(out))
@@ -1111,7 +1214,7 @@ print(json.dumps(out))
 
 def _ab_front(parent_dir, soa, b, cls, cfg):
     """The front end of the tree at ``parent_dir`` and of this one on view
-    0 (setup, binning with its face lists, the whole fused chain), in
+    0 (setup, binning with its face lists, the census, the whole fused chain), in
     turns parent, change, change, parent, one process a turn; the two
     trees' counts must agree."""
     result = _turns(parent_dir, AB_FRONT_TURN, {
@@ -1248,6 +1351,9 @@ def main():
     # vertices on pixel centres, slivers, edges over 2^18 px: both
     # redesigned rasters against their plain versions
     _knife_edge_probe(cls, dev)
+    # lists past the cut kernel's shared sort, a grid past the count
+    # kernel's shared histogram
+    _binning_probes(soa, cfg, dev)
 
     # the one-hot scan on view 0's image and on images it must refuse
     labels = rng.integers(0, N_CLASSES, (len(cams), H, W), dtype=np.int8)
@@ -1577,7 +1683,10 @@ def main():
              bound_ms=onehot_row["float32"]["bound_ms"], bound_by="bytes",
              library_ms=None, float64_ms=onehot_row["float64"]["ms"],
              float64_plain_ms=onehot_row["float64"]["plain_ms"],
-             float64_bound_ms=onehot_row["float64"]["bound_ms"]),
+             float64_bound_ms=onehot_row["float64"]["bound_ms"],
+             device_ms=onehot_row["float32"]["device_ms"],
+             device_kernels_ms=onehot_row["float32"]["device_kernels"],
+             float64_device_ms=onehot_row["float64"]["device_ms"]),
         dict(name="face_sums", route="cuda",
              source="geograypher_tpu_torch/csrc/face_sums.cu",
              replaces=FACE_SUMS_REPLACES,
@@ -1608,6 +1717,7 @@ def main():
              ms=mean(front_main, "setup_ms"), plain_ms=mean(front_main, "setup_plain_ms"),
              bound_ms=mean(front_main, "setup_bound_ms"),
              bound_by=front_main[0]["setup_bound_by"], library_ms=None,
+             device_ms=mean(front_main, "setup_device_ms"),
              lens_ms=lens["setup_ms"], lens_plain_ms=lens["setup_plain_ms"],
              lens_bound_ms=lens["setup_bound_ms"],
              selection_ms=mean(small, "setup_ms"),
@@ -1621,14 +1731,25 @@ def main():
              ms=mean(front_main, "binning_ms"), plain_ms=mean(front_main, "binning_plain_ms"),
              bound_ms=mean(front_main, "binning_bound_ms"),
              bound_by=front_main[0]["binning_bound_by"],
-             # the stable torch.sort inside it, alone on the key kernel's keys
-             library_ms=mean(front_main, "sort_ms"), keys_ms=mean(front_main, "keys_ms"),
+             # no PyTorch call computes the lists
+             library_ms=None,
+             device_ms=mean(front_main, "binning_device_ms"),
+             device_kernels_ms=[r["binning_device_kernels"] for r in front_main],
              census_ms=mean(front_main, "census_ms"),
+             census_device_ms=mean(front_main, "census_device_ms"),
              census_plain_ms=mean(front_main, "census_plain_ms"),
              census_bound_ms=mean(front_main, "census_bound_ms"),
              selection_ms=mean(small, "binning_ms"),
              selection_plain_ms=mean(small, "binning_plain_ms"),
              selection_bound_ms=mean(small, "binning_bound_ms"),
+             # the probes: lists past the shared sort, a grid past the
+             # shared histogram
+             crowded_ms=FRONT_ROWS["crowded"]["binning_ms"],
+             crowded_device_ms=FRONT_ROWS["crowded"]["binning_device_ms"],
+             crowded_bound_ms=FRONT_ROWS["crowded"]["binning_bound_ms"],
+             grid_8192_ms=FRONT_ROWS["grid_8192"]["binning_ms"],
+             grid_8192_device_ms=FRONT_ROWS["grid_8192"]["binning_device_ms"],
+             grid_8192_bound_ms=FRONT_ROWS["grid_8192"]["binning_bound_ms"],
              turns=ab_front, views_equal=sorted(FRONT_ROWS)),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

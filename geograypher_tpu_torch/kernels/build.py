@@ -61,11 +61,10 @@ SIGNATURES = {
     "gg_triangle_setup": [_P, _I64, _P, _P, _F, _F, _P, _P, _P, _F, _F, _F, _I, _I,
                           _P, _P, _P, _P],
     # bbox, valid, exclude, n_units, bin_block, global_from, (th, tw, ntx) x 3,
-    # n_tiles x 3, wy0, wx0, keys, stats, stream
-    "gg_tile_binning_keys": [_P, _P, _P, _I64, _I, _I64] + [_I] * 14 + [_P] * 3,
-    # sorted, order, n_keys, slots, bin_block, n_tiles x 4, caps x 4, (cand,
-    # counts, face_cand, face_counts) x 4, census_only, stats, stream
-    "gg_tile_binning_lists": [_P, _P, _I64, _I, _I] + [_I] * 8 + [_P] * 16 + [_I, _P, _P],
+    # n_tiles x 3, wy0, wx0, caps x 4, (cand, counts, face_cand, face_counts)
+    # x 4, scratch, census_only, stats, stream
+    "gg_tile_binning": [_P, _P, _P, _I64, _I, _I64] + [_I] * 18 + [_P] * 17
+                       + [_I, _P, _P],
     # n, n_segments, n_channels -> bytes
     "gg_face_sums_scratch_bytes": [_I64, _I64, _I],
 }

@@ -3,28 +3,30 @@
 :func:`tile_binning` assigns each face unit of a view to the tile lists
 of the finest level whose window covers its box (:class:`BinnedTriangles`),
 or returns the census of those lists.  On a CUDA tensor it launches the
-hand-written kernels of ``csrc/tile_binning.cu`` around one
-``torch.sort``; on a CPU tensor it runs :func:`bin_triangles_plain`.
+hand-written kernels of ``csrc/tile_binning.cu`` through one C entry
+point; on a CPU tensor it runs :func:`bin_triangles_plain`.
 
 Kernel source note.  Replaces no TPU kernel: the JAX package's
 ``bin_triangles`` (``geograypher_tpu/ops/rasterize.py:556``) builds its
 keys and cuts its lists in XLA around one ``jnp.sort``; the port's plain
 version is about fifty eager launches (key build, ``torch.cat``, the
 sort, ``searchsorted`` and per-level gathers).  On the H100 it is bound
-by bytes: the (tile, unit) keys written, sorted and read back, and the
-lists written.  Three launches and no host read: a key kernel (one thread
-a unit: the unit's box over its valid members, the level whose window
-covers it, its window's int32 tile keys, unit-major), the sort
-(``torch.sort(stable=True)``, CUB's radix sort over 32-bit keys with
-their int64 positions: the JAX package leaves its sort to XLA too; a unit
-holds a tile once and units lie in order, so the stable order keeps each
-tile's units ascending, as the plain version's int64 keys ``tile *
-n_units + unit`` do in twice the radix passes), and a list kernel (a warp
-a tile: its start and end by binary search over the sorted keys, the
-ascending unit list cut at the cap, the clipped count, the overflow and
-the census by integer atomics, and at ``bin_block > 1`` the face-id lists
-the raster kernel reads, which ``binned_face_lists`` would otherwise
-expand).  A counting sort that needs no sort is a later item.
+by bytes: each unit's box read, the lists written.  A counting binning
+with no global sort and no host read, on the caller's stream: a memset
+of the tile counts; a count kernel (blocks over contiguous unit ranges,
+each unit's window keys merged across the warp and counted in a
+shared-memory histogram of every tile, or in global memory past 57,344
+tiles); a one-block scan (segment starts, overflow, census: the census
+stops here); a scatter kernel (the keys again, each run of equal keys in
+a warp claiming its slots in its tile's segment by one atomic); a cut
+kernel (a warp a tile: the clipped count, -1 past it, at ``bin_block >
+1`` the face-id lists the raster kernel reads, and a segment of up to
+256 ids sorted in registers, its smallest ``cap`` unit ids written in
+ascending order); and a kernel for the longer segments (up to 512 ids a
+warp in registers, then a block a tile that reads a longer one out of
+bitmap windows of unit ids, from the smallest up).  Integer work
+throughout, and every list is in ascending order when it is written: the
+same lists as the plain version's, on every run.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from geograypher_tpu_torch.kernels import build
 from geograypher_tpu_torch.ops.raster_tiles import INT32_MAX
 
 # kernel launches since the last reset (the main path's proof of use): one
-# per tile_binning call that ran the key and list kernels
+# per tile_binning call that ran the binning kernels
 launches = 0
 
 
@@ -213,16 +215,17 @@ def tile_binning(
     return_census: bool = False,
     exclude_blocks: Optional[torch.Tensor] = None,
 ):
-    """Assign triangles to tile candidate lists with one sort.
+    """Assign triangles to tile candidate lists.
 
     Each unit (a face, or a block of ``bin_block`` faces whose box is the
     union of its valid members) goes to the finest level whose window
     covers its box -- ``l0_window`` tiles at level 0, 2x2 at levels 1-2
     -- or to the global list (level 3), giving at most wy*wx (tile key,
     unit) pairs.  The plain version sorts them on the combined int64 key
-    ``key * n_units + unit``; the card does a stable sort of the int32
-    tile keys laid out unit-major.  Both order the units ascending inside
-    each tile, as the tie rules need, and give the same lists.
+    ``key * n_units + unit``; the card counts them per tile, scatters the
+    units into per-tile segments and sorts each segment (or cuts a long
+    one by bitmap windows of unit ids).  Both order the units ascending
+    inside each tile, as the tie rules need, and give the same lists.
 
     With ``return_census`` it returns the exact per-level maximum tile
     occupancy (4,) in units instead, independent of the caps.
@@ -243,12 +246,11 @@ def tile_binning(
     return _launch(setup, config, image_h, image_w, return_census, exclude_blocks)
 
 
-def keys(setup, config, image_h, image_w, exclude_blocks=None):
-    """Launch the key kernel: ``(keys, stats)``, the unsorted int32 tile
-    keys of every unit's window, unit-major (slot ``s`` of unit ``u`` at
-    ``u * wy0 * wx0 + s``; ``INT32_MAX`` in an unused slot), and the (5,)
-    int64 overflow and census, zeroed.  The inputs are checked as for
-    :func:`tile_binning` on the card."""
+def _launch(setup, config, image_h, image_w, return_census, exclude_blocks):
+    """Check the inputs, allocate the outputs (one buffer cut into views)
+    and the scratch, and run the whole binning through one C entry
+    point."""
+    global launches
     valid, bbox = setup.valid, setup.bbox
     dev = valid.device
     n_faces = valid.shape[0]
@@ -274,13 +276,33 @@ def keys(setup, config, image_h, image_w, exclude_blocks=None):
                          f"{dev}, got {exclude_blocks.dtype} "
                          f"{tuple(exclude_blocks.shape)}")
     grids = config.grids(image_h, image_w)
-    n_tiles = [nty * ntx for nty, ntx in grids]
-    if sum(n_tiles) + 1 >= INT32_MAX or n_units >= INT32_MAX:
-        raise ValueError(f"tile_binning: {sum(n_tiles) + 1} tiles of {n_units} units "
-                         "exceed the int32 keys and lists")
+    n_tiles = [nty * ntx for nty, ntx in grids] + [1]
+    total = sum(n_tiles)
     wy0, wx0 = _window(config)
+    if total >= INT32_MAX or n_faces >= INT32_MAX or n_units * wy0 * wx0 >= INT32_MAX:
+        raise ValueError(f"tile_binning: {total} tiles of {n_units} units "
+                         f"({wy0} x {wx0} slots) exceed the int32 keys and lists")
+    caps = [int(c) for c in config.caps]
     stats = torch.empty(5, dtype=torch.int64, device=dev)
-    out = torch.empty(n_units * wy0 * wx0, dtype=torch.int32, device=dev)
+    # tile counts and the long-segment queue's two counts (padded to 16
+    # bytes), cursors; the queue and the segments (none for the census)
+    scratch = torch.empty((total + 5) // 4 * 4 + total
+                          + (0 if return_census else total + n_units * wy0 * wx0),
+                          dtype=torch.int32, device=dev)
+    lists, list_ptrs = [], [None] * 16
+    if not return_census:
+        # per level: unit lists, counts and, at bin_block > 1, face lists
+        # and face counts (at bin_block 1 the unit lists are the face lists)
+        sizes = []
+        for n, cap in zip(n_tiles, caps):
+            sizes += [n * cap, n] + ([n * cap * bb, n] if bb > 1 else [])
+        parts = iter(torch.empty(sum(sizes), dtype=torch.int32, device=dev).split(sizes))
+        for n, cap in zip(n_tiles, caps):
+            cand, counts = next(parts).view(n, cap), next(parts)
+            face_cand, face_counts = ((next(parts).view(n, cap * bb), next(parts))
+                                      if bb > 1 else (cand, counts))
+            lists.append((cand, counts, face_cand, face_counts))
+        list_ptrs = [t.data_ptr() for level in lists for t in level]
     level_args = []
     for lvl, scale in enumerate(config.level_scales):
         level_args += [config.tile_h * scale, config.tile_w * scale, grids[lvl][1]]
@@ -288,45 +310,13 @@ def keys(setup, config, image_h, image_w, exclude_blocks=None):
     global_from = 2**63 - 1 if config.global_from is None else int(config.global_from)
     # launched under the tensor's device, whose stream it is given
     with torch.cuda.device(dev):
-        err = build.load().gg_tile_binning_keys(
+        err = build.load().gg_tile_binning(
             bbox.data_ptr(), valid.data_ptr(),
             None if exclude_blocks is None else exclude_blocks.data_ptr(),
-            n_units, bb, global_from, *level_args, *n_tiles, wy0, wx0,
-            out.data_ptr(), stats.data_ptr(), build.stream_ptr(dev))
-    build.check(err, "gg_tile_binning_keys")
-    return out, stats
-
-
-def _launch(setup, config, image_h, image_w, return_census, exclude_blocks):
-    """The key kernel, the sort and the list kernel; outputs allocated
-    here."""
-    global launches
-    tile_keys, stats = keys(setup, config, image_h, image_w, exclude_blocks)
-    dev = tile_keys.device
-    bb = config.bin_block
-    wy0, wx0 = _window(config)
-    n_tiles = [nty * ntx for nty, ntx in config.grids(image_h, image_w)] + [1]
-    caps = [int(c) for c in config.caps]
-    lists, list_ptrs = [], [None] * 16
-    if not return_census:
-        for lvl in range(4):
-            cand = torch.empty((n_tiles[lvl], caps[lvl]), dtype=torch.int32, device=dev)
-            counts = torch.empty(n_tiles[lvl], dtype=torch.int32, device=dev)
-            if bb > 1:
-                face_cand = torch.empty((n_tiles[lvl], caps[lvl] * bb),
-                                        dtype=torch.int32, device=dev)
-                face_counts = torch.empty(n_tiles[lvl], dtype=torch.int32, device=dev)
-            else:
-                face_cand, face_counts = cand, counts
-            lists.append((cand, counts, face_cand, face_counts))
-        list_ptrs = [t.data_ptr() for level in lists for t in level]
-    with torch.cuda.device(dev):
-        sorted_keys, order = torch.sort(tile_keys, stable=True)
-        err = build.load().gg_tile_binning_lists(
-            sorted_keys.data_ptr(), order.data_ptr(), sorted_keys.numel(), wy0 * wx0, bb,
-            *n_tiles, *caps, *list_ptrs, int(return_census),
+            n_units, bb, global_from, *level_args, *n_tiles[:3], wy0, wx0, *caps,
+            *list_ptrs, scratch.data_ptr(), int(return_census),
             stats.data_ptr(), build.stream_ptr(dev))
-    build.check(err, "gg_tile_binning_lists")
+    build.check(err, "gg_tile_binning")
     launches += 1
     if return_census:
         return stats[1:]

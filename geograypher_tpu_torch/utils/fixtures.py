@@ -287,6 +287,42 @@ def knife_edge_triangles(
     return cam.astype(np.float32)
 
 
+def crowded_tile_triangles(
+    image_w: int,
+    image_h: int,
+    seed: int = 0,
+    n_tile: int = 6000,
+    n_wide: int = 7000,
+    n_scatter: int = 20000,
+    tile: Tuple[int, int] = (8, 128),
+) -> np.ndarray:
+    """(F, 3, 3) float32 camera-frame triangles for focal length 1 that
+    crowd single tile lists at ``image_w x image_h``: ``n_tile`` triangles
+    of 1-3 px inside the second tile row's first ``tile`` (h, w) tile,
+    ``n_wide`` spanning the whole image (the global list) and
+    ``n_scatter`` of 1-8 px anywhere, their ids interleaved at random.
+    Vertices at depth 1 (exact projections).  F is padded to a multiple
+    of 8 with degenerate (invalid) faces."""
+    rng = np.random.default_rng(seed)
+    th, tw = tile
+    kind = rng.permutation(np.repeat([0, 1, 2], [n_tile, n_wide, n_scatter]))
+    n = kind.size
+    centre = np.stack([rng.uniform(0, image_w, n), rng.uniform(0, image_h, n)], -1)
+    size = np.full(n, 4.0)
+    crowded = kind == 0
+    centre[crowded] = np.stack([rng.uniform(3, tw - 3, n_tile),
+                                rng.uniform(th + 2, 2 * th - 2, n_tile)], -1)
+    size[crowded] = 1.5
+    centre[kind == 1] = (image_w / 2.0, image_h / 2.0)
+    size[kind == 1] = 2.0 * max(image_w, image_h)
+    px = centre[:, None, :] + rng.uniform(-1, 1, (n, 3, 2)) * size[:, None, None]
+    px = np.concatenate([px, np.full((-n % 8, 3, 2), 0.5 + image_w / 2.0)])
+    cam = np.ones(px.shape[:2] + (3,))
+    cam[..., 0] = px[..., 0] - image_w / 2.0
+    cam[..., 1] = px[..., 1] - image_h / 2.0
+    return cam.astype(np.float32)
+
+
 def make_scene_mesh(
     n_objects: int = 4, ground_n: int = 25, size: float = 20.0, seed: int = 0
 ):

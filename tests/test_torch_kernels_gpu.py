@@ -23,6 +23,7 @@ from geograypher_tpu_torch.ops import (
 )
 from geograypher_tpu_torch.ops import rasterize as tr
 from geograypher_tpu_torch.utils.fixtures import (
+    crowded_tile_triangles,
     gather_tri_verts,
     knife_edge_triangles,
     make_grid_mesh,
@@ -747,3 +748,80 @@ def test_front_end_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(binned.overflow) == 0
+
+
+def crowded_setup(device, w=1280, h=720, n_tile=6000):
+    """``crowded_tile_triangles`` at 1280 x 720 with 200,000 scattered
+    faces: an L0 list and the global list longer than a warp sorts (512
+    ids; the L0 list of ~1,650 faces at ``n_tile`` 2000), their ids
+    spread over two of the long-segment kernel's bitmap windows (131,072
+    unit ids), most other L0 lists of 256-512 ids."""
+    tri = crowded_tile_triangles(w, h, n_tile=n_tile, n_scatter=200000)
+    return tr.setup_triangles(torch.as_tensor(tri, device=device),
+                              torch.tensor(1.0, device=device), w, h), w, h
+
+
+def binning_outputs(binned):
+    return (binned.cand + binned.counts + binned.face_cand + binned.face_counts
+            + (binned.overflow,))
+
+
+@pytest.mark.parametrize("config", ["main", "bin_block8"])
+@pytest.mark.parametrize("n_tile", [2000, 6000])
+def test_binning_long_lists(cuda, n_tile, config):
+    """Lists longer than a warp sorts go to the block kernel, which reads
+    them out of bitmap windows of unit ids; bit-equal to the plain version
+    at census caps and at half of them."""
+    setup, w, h = crowded_setup(cuda, n_tile=n_tile)
+    census = assert_binning_equal(setup, FRONT_CONFIGS[config], h, w)
+    assert census[3] > 512 and (census[0] > 512 or config != "main")
+
+
+@pytest.mark.parametrize("config", ["main", "bin_block8"])
+def test_binning_grid_past_the_shared_histogram(cuda, config):
+    """An 8192 x 8192 view has 69,889 tiles, more than the count kernel's
+    shared histogram holds (57,344): it counts in global memory,
+    bit-equal to the plain version."""
+    w = h = 8192
+    verts, faces = make_grid_mesh(n=41, size=4.0,
+                                  z_fn=lambda x, y: 0.2 * np.sin(3 * x) * np.cos(2 * y))
+    tri = torch.as_tensor(gather_tri_verts(verts, faces), dtype=torch.float32)
+    w2c = torch.as_tensor(np.linalg.inv(nadir_camera(4.0, 4000.0, w)), dtype=torch.float32)
+    setup = tr.setup_from_soa(tr.tri_to_soa(tri).to(cuda), w2c.to(cuda),
+                              torch.tensor(4000.0, device=cuda), w, h)
+    cfg = FRONT_CONFIGS[config]
+    assert sum(a * b for a, b in cfg.grids(h, w)) + 1 == 69889
+    assert_binning_equal(setup, cfg, h, w)
+
+
+@pytest.mark.parametrize("config", ["main", "bin_block8", "level_s"])
+def test_binning_two_runs_are_equal(cuda, config):
+    """The scatter's order differs from run to run; the lists do not."""
+    setup, w, h = crowded_setup(cuda)
+    cfg = FRONT_CONFIGS[config]
+    exclude = subtile.subtile_mask8(setup, cfg) if cfg.subtile else None
+    census = tr.bin_triangles(setup, cfg, h, w, return_census=True, exclude_blocks=exclude)
+    cfg = dataclasses.replace(cfg, caps=tuple(int(c) + 8 for c in census.tolist()))
+    runs = [binning_outputs(tr.bin_triangles(setup, cfg, h, w, exclude_blocks=exclude))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(census, tr.bin_triangles(setup, cfg, h, w, return_census=True,
+                                                exclude_blocks=exclude))
+
+
+def test_binning_on_the_card_never_sorts(cuda, monkeypatch):
+    """The card's binning calls no PyTorch sort."""
+    setup, w, h = crowded_setup(cuda)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's binning sorted")
+
+    for name in ("sort", "argsort", "searchsorted"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse, raising=False)
+    binned = tr.bin_triangles(setup, tr.RasterConfig(caps=(8192, 64, 512, 8192)), h, w)
+    monkeypatch.undo()
+    plain = binning.bin_triangles_plain(setup, tr.RasterConfig(caps=(8192, 64, 512, 8192)),
+                                        h, w)
+    assert all(torch.equal(a, b) for a, b in zip(binned.cand, plain.cand))

@@ -8,8 +8,10 @@ Run from the repository root on a machine with a CUDA card:
 
 Each TREE is the root of a checkout of a commit (for instance a ``git
 archive`` unpacked under the gitignored ``build/``; ``.`` is this tree).
-The turns walk the trees forward, then backward (A B C D D C B A),
-each a process of its own started in its tree, so that every turn
+The turns walk the trees forward, then backward (A B C D D C B A;
+a tree named more than once takes a turn each time it is named, so
+``P C P C P C P C P C`` gives ten turns of each, alternating), each a
+process of its own started in its tree, so that every turn
 imports that tree's ``geograypher_tpu_torch`` and its
 ``chip_smoke.py`` helpers.  A turn builds phase 7's workload: the
 999,698-face bench mesh (sorted), the 20 views of the suite (the last
@@ -21,8 +23,8 @@ as ``_pipeline_phase`` calls it.  It runs
 and 1 prefetch workers, each run ended by a synchronise, and prints one
 JSON line: the seconds and views/s of each run, and a checksum of the
 view counts (every tree must give the same).  The script prints every
-turn's line, each tree's median views/s at 4 and at 1 worker, and the
-card's name and power limit last.
+turn's line, each tree's median views/s at 4 and at 1 worker with the
+quartiles of its runs, and the card's name and power limit last.
 """
 
 from __future__ import annotations
@@ -94,12 +96,15 @@ def main():
         turns.append(turn)
         print(json.dumps(turn), flush=True)
     summary = {}
-    for tree in args.trees:
+    for tree in dict.fromkeys(args.trees):
         mine = [t for t in turns if t["tree"] == tree]
-        summary[tree] = {
-            f"workers_{w}_views_per_s": statistics.median(
-                r["views_per_s"] for t in mine for r in t["runs"] if r["workers"] == w)
-            for w in (4, 1)}
+        summary[tree] = {"turns": len(mine)}
+        for w in (4, 1):
+            rates = [r["views_per_s"] for t in mine for r in t["runs"] if r["workers"] == w]
+            summary[tree][f"workers_{w}_views_per_s"] = statistics.median(rates)
+            # first and third quartiles of the runs
+            q1, _, q3 = statistics.quantiles(rates, n=4)
+            summary[tree][f"workers_{w}_quartiles"] = [q1, q3]
         summary[tree]["first_s"] = [t["first_s"] for t in mine]
     checksums = {t["views_checksum"] for t in turns}
     print(json.dumps({"summary": summary, "order": order,

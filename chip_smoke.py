@@ -18,7 +18,10 @@ Phases (each prints one line; any failure raises and exits nonzero):
    ``setup_from_soa_plain`` and ``bin_triangles_plain``, planes as their
    int32 words, lists, counts, face lists, overflow and census, two
    binning runs equal, with their times, each kernel's device time by
-   name and their bounds, ``"front"`` lines); then a knife-edge probe
+   name and their bounds, ``"front"`` lines); the setup's fixed cost on
+   1,024 faces (``"setup_probe"``: bit-equal, wrapper and device ms) and
+   the host's time to enqueue a setup call, split into its parts
+   (``"setup_host_us"``); then a knife-edge probe
    (``knife_edge_triangles``: vertices on and within 1e-4 px of pixel
    centres, axis-aligned edges, slivers, edges longer than 2^18 px)
    through the front end and both rasters at the main and the level-S
@@ -185,7 +188,8 @@ imports nothing of JAX or of the JAX package.
 (for instance ``git archive`` of the parent, unpacked under ``build/``):
 the counts kernel of that tree and of this one (``"ab_counts"``), and
 their front ends (``"ab_front"``: setup, binning, the census and the
-whole fused chain of view 0, the two trees' counts equal) are then timed on the same
+whole fused chain of view 0, the setup's device time and host enqueue,
+the two trees' counts equal) are then timed on the same
 saved inputs in turns parent, change, change, parent, each turn a process
 of its own started in its tree.  Every phase that demands its raster
 launches also demands at least as many launches of the setup and the
@@ -355,6 +359,8 @@ SETUP_FLOP_LENS = 215
 # the setup's bytes a face: 9 float32 read; 12 plane floats, 4 int32 box
 # bounds and one valid byte written
 SETUP_BYTES = 9 * 4 + 12 * 4 + 4 * 4 + 1
+# the setup's fixed-cost probe: faces of the middle of the bench mesh
+SETUP_PROBE_FACES = 1024
 # the front end's kernel-vs-plain rows by view name (``_front_vs_plain``)
 FRONT_ROWS = {}
 # the launch counts of the front end's kernels
@@ -375,6 +381,13 @@ WARP_SORT_MAX = 512
 SHARED_HISTOGRAM_BINS = 57344
 # bytes written between profiled calls to evict the card's 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
+# the most traces ``_profile`` takes until one is whole, and the host's
+# wait after its timed window opens and before it closes
+PROFILE_TRIES = 10
+PROFILE_PAD_S = 0.01
+# the device microseconds a launch under which ``_profile`` does not hold a
+# kernel's launch count (the profiler's resolution is one microsecond)
+PROFILE_SHORT_US = 2.0
 
 # the host scan the one-hot kernel took over (both packages ran it in numpy)
 ONEHOT_REPLACES = ("none: host numpy `_as_class_image`, "
@@ -456,44 +469,78 @@ def _ab_ms(fn_a, fn_b, runs=5):
 
 def _profile(fn, runs=5, flush=False):
     """``fn`` run ``runs`` times under ``torch.profiler`` after a warm-up:
-    (device busy share of the window, {kernel: device ms per run}, top
-    10), or (None, {}) when the trace holds no device time (a trace
-    that comes back without it, as some do on the card, is taken again,
-    up to three times).  With ``flush`` each call is preceded by a fill
+    (device busy share of the window, {kernel: device ms a call}, top
+    10), or (None, {}) when no whole trace comes back.  A trace is whole
+    when each kernel of it or of a trace of one call taken just before it
+    is in both, launched ``runs`` times as often in it.  Kernels of under
+    ``PROFILE_SHORT_US`` a launch are not held to that: the profiler reads
+    whole microseconds and loses launches that read 0 (a one-microsecond
+    memset is missing from many traces), which moves a sum by less than
+    a microsecond a launch.  The profiler also drops the first launches
+    of some traces on the card, so each trace starts with a warm-up step
+    of one call whose events it discards, the host waits
+    ``PROFILE_PAD_S`` after the timed window opens and before it closes,
+    and a trace that is not whole is taken again, its one-call trace with
+    it, up to ``PROFILE_TRIES`` times.  A kernel's ms a call is its time
+    over the launches seen, times its launches in one call (a short
+    kernel's, its time over ``runs``).  With ``flush`` each call is preceded by a fill
     of ``L2_FLUSH_BYTES`` (its kernel in the trace, its time in the busy
     share), so that each call reads its inputs from HBM, not from the L2
     the call before left them in."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     evict = (torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
              if flush else None)
     torch.cuda.synchronize()
-    for _ in range(3):
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(runs):
-                    if flush:
-                        evict.fill_(1)
-                    fn()
-                end.record()
-                end.synchronize()
-        except RuntimeError:  # a card without profiler access: not measured
-            return None, {}
-        kernels = {}
+
+    def call():
+        if flush:
+            evict.fill_(1)
+        fn()
+
+    def trace(calls):
+        """(window ms, {kernel: (device us, launches)}) of ``calls`` calls."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                call()
+            end.record()
+            end.synchronize()
+            time.sleep(PROFILE_PAD_S)
+            prof.step()
+        seen = {}
         for ev in prof.key_averages():
             us = getattr(ev, "self_device_time_total", 0) or 0
-            if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                    and not ev.key.startswith("ProfilerStep")):
                 name = ev.key[:60]
-                kernels[name] = kernels.get(name, 0.0) + us / 1e3 / runs
-        if kernels:
+                us0, n0 = seen.get(name, (0.0, 0))
+                seen[name] = (us0 + us, n0 + ev.count)
+        return start.elapsed_time(end), seen
+
+    for _ in range(PROFILE_TRIES):
+        try:
+            _, one = trace(1)
+            wall_ms, seen = trace(runs)
+        except RuntimeError:  # a card without profiler access: not measured
+            return None, {}
+        short = {k for trace_ in (one, seen) for k, (us, n) in trace_.items()
+                 if us < PROFILE_SHORT_US * n}
+        if one and all(k in one and k in seen and seen[k][1] == runs * one[k][1]
+                       for k in seen.keys() - short | one.keys() - short):
             break
     else:
         return None, {}
-    wall_ms = start.elapsed_time(end)
+    kernels = {k: us / 1e3 / (runs if k in short else n / one[k][1])
+               for k, (us, n) in seen.items()}
     busy = sum(kernels.values()) * runs / wall_ms
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
     return busy, top
@@ -605,12 +652,20 @@ def _device_ms(fn, runs=10):
 
 def _device_by_name(fn, names, runs=5):
     """Device milliseconds a call of the kernels whose profiler names hold
-    each of ``names`` ({name: ms}; None when the trace holds no device
-    time), over ``runs`` calls of ``fn``, the L2 evicted before each."""
+    each of ``names`` ({name: ms}, None where no kernel of the trace holds
+    the name; None when no whole trace comes back, ``_profile``), over
+    ``runs`` calls of ``fn``, the L2 evicted before each."""
     _, kernels = _profile(fn, runs, flush=True)
     if not kernels:
         return None
-    return {n: sum(ms for k, ms in kernels.items() if n in k) for n in names}
+    return {n: (sum(ms for k, ms in kernels.items() if n in k)
+                if any(n in k for k in kernels) else None) for n in names}
+
+
+def _sum_or_none(values):
+    """The sum of ``values``, or None if any is None."""
+    values = list(values)
+    return None if None in values else sum(values)
 
 
 def _binning_outputs(binned):
@@ -969,16 +1024,89 @@ def _front_vs_plain(name, soa, w2c, f, cfg, dist=None, h=H, w=W):
         census_plain_ms=_cuda_ms(lambda: binning.bin_triangles_plain(
             want, cfg, h, w, True, exclude)),
         census_bound_ms=census_bound_ms,
-        # device ms a call by kernel name (None: the trace held no device time)
+        # device ms a call by kernel name (None: no whole trace, or no kernel
+        # of that name in it)
         setup_device_ms=by_name and by_name[SETUP_KERNEL],
-        binning_device_ms=by_name and sum(by_name[k] for k in BINNING_KERNELS),
+        binning_device_ms=by_name and _sum_or_none(by_name[k] for k in BINNING_KERNELS),
         binning_device_kernels=by_name and {k: by_name[k] for k in BINNING_KERNELS},
-        census_device_ms=census_by_name and sum(census_by_name.values()),
+        census_device_ms=census_by_name and _sum_or_none(census_by_name.values()),
         census_device_kernels=census_by_name,
     )
     FRONT_ROWS[name] = row
     _line("front", **row)
     return row
+
+
+def _setup_host_us(rows, w2c, f, znear, calls=1000):
+    """Host microseconds one ``tri_setup.triangle_setup`` call on (rows,
+    w2c, f) takes to enqueue, and its parts alone: the checks, the one
+    allocation (its views, within it, also alone), the stream lookup, the
+    ctypes call of the C entry point on prepared arguments, and the rest
+    (the total less the allocation, the lookup and the call).  Each the
+    median of 5 runs of ``calls`` calls, no synchronise inside a run."""
+    dev, n = rows.device, rows.shape[1]
+    lib = build.load()
+
+    def per_call(fn, repeats=5):
+        fn()
+        times = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter_ns() - t0) / calls / 1e3)
+        torch.cuda.synchronize()
+        return sorted(times)[repeats // 2]
+
+    scalars = tri_setup._checked(rows, w2c, f, None)
+    buf, _ = tri_setup._outputs(n, dev)
+    args = (rows.data_ptr(), n, w2c.data_ptr(), *scalars, znear, W, H, buf.data_ptr(),
+            dev.index, build.raw_stream(dev.index))
+    out = {
+        "total": per_call(lambda: tri_setup.triangle_setup(rows, w2c, f, W, H, znear)),
+        "checks": per_call(lambda: tri_setup._checked(rows, w2c, f, None)),
+        "allocations": per_call(lambda: tri_setup._outputs(n, dev)),
+        "views": per_call(lambda: tri_setup._views(buf, n)),
+        "stream": per_call(lambda: build.raw_stream(dev.index)),
+        "ctypes_call": per_call(lambda: lib.gg_triangle_setup(*args)),
+    }
+    out["rest"] = out["total"] - (out["allocations"] + out["stream"] + out["ctypes_call"])
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def _setup_probe(soa, c2w, f, cfg):
+    """The setup's fixed cost, on ``SETUP_PROBE_FACES`` faces of the middle
+    of the mesh under a 4K probe camera: the kernel bit-equal to its plain
+    version and two runs equal; the wrapper's ms (CUDA events, median of
+    20), the kernel's device ms by name (the L2 evicted before each of 5
+    calls) and the plain version's ms (the ``"setup_probe"`` line); and
+    the host's microseconds to enqueue one wrapper call, split into its
+    parts (the ``"setup_host_us"`` line, ``_setup_host_us``)."""
+    mid = soa.shape[1] // 2
+    rows = soa[:, mid:mid + SETUP_PROBE_FACES].contiguous()
+    w2c, f_t = _probe_inputs(rows, c2w, f)
+
+    def call():
+        return setup_from_soa(rows, w2c, f_t, W, H, cfg.znear)
+
+    got, again = call(), call()
+    want = tri_setup.setup_from_soa_plain(rows, w2c, f_t, W, H, cfg.znear)
+    torch.cuda.synchronize()
+    if not (_setup_equal(got, want) and _setup_equal(again, got)):
+        raise RuntimeError("setup kernel on the fixed-cost probe: not equal to the plain "
+                           "version, or two runs differ")
+    host = _setup_host_us(rows, w2c, f_t, cfg.znear)
+    _line("setup_host_us", faces=SETUP_PROBE_FACES, calls=1000, **host)
+    by_name = _device_by_name(call, (SETUP_KERNEL,))
+    bound_ms, bound_by = _bound(SETUP_BYTES * SETUP_PROBE_FACES,
+                                SETUP_FLOP * SETUP_PROBE_FACES)
+    _line("setup_probe", faces=SETUP_PROBE_FACES, valid=int(want.valid.sum()),
+          equal_to_plain=True, runs_equal=True, setup_ms=_cuda_ms(call, runs=20),
+          setup_device_ms=by_name and by_name[SETUP_KERNEL],
+          setup_plain_ms=_cuda_ms(lambda: tri_setup.setup_from_soa_plain(
+              rows, w2c, f_t, W, H, cfg.znear)),
+          setup_bound_ms=bound_ms, setup_bound_by=bound_by, host_us=host["total"])
 
 
 def _piecewise_labels(rng, h, w):
@@ -1163,11 +1291,14 @@ def _ab_counts(parent_dir, p2f, cls, cls_piecewise, n_faces):
 
 # one turn of the front end's comparison: run with a tree's root as the
 # working directory, it times that tree's setup, binning, census and whole
-# fused chain on the saved view (medians of 20 timed calls) and sums its
-# counts
+# fused chain on the saved view (medians of 20 timed calls), the setup
+# kernel's device time by name (profiler, the L2 evicted before each of 5
+# calls) and the host's time to enqueue a setup call (1,000 calls, no
+# synchronise between them), and sums its counts
 AB_FRONT_TURN = r"""
-import json, os, statistics, sys
+import json, os, statistics, sys, time
 import torch
+from torch.profiler import ProfilerActivity, profile, schedule
 from geograypher_tpu_torch.ops import rasterize as tr
 here = os.path.realpath(os.getcwd()) + os.sep
 assert os.path.realpath(tr.__file__).startswith(here), tr.__file__
@@ -1199,10 +1330,63 @@ def chain():
                                       d["n_classes"], False)
 
 
-setup = tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)
+def setup_call():
+    return tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)
+
+
+def setup_device_ms(runs=5, tries=10):
+    evict = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    setup_call()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        # a warm-up step of one call first, its events discarded; the host
+        # waits 10 ms after the timed window opens and before it closes
+        # (chip_smoke.py's _profile)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            evict.fill_(1)
+            setup_call()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.01)
+            for _ in range(runs):
+                evict.fill_(1)
+                setup_call()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+        # one setup kernel and one fill a call: a trace that dropped a
+        # launch of either is taken again, and after ``tries`` reads None
+        us, launches, fills = 0.0, 0, 0
+        for ev in prof.key_averages():
+            if (ev.device_type != torch.autograd.DeviceType.CUDA
+                    or ev.key.startswith("ProfilerStep")):
+                continue
+            if "triangle_setup" in ev.key:
+                us, launches = us + ev.self_device_time_total, launches + ev.count
+            elif ev.self_device_time_total > 0:
+                fills += ev.count
+        if launches == runs == fills:
+            return us / 1e3 / launches
+    return None
+
+
+def host_us(fn, calls=1000):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter_ns() - t0) / calls / 1e3
+    torch.cuda.synchronize()
+    return us
+
+
+setup = setup_call()
 counts, over, _ = chain()
 weights = torch.arange(counts.numel(), device=counts.device).remainder(97).double() + 1
-out = dict(setup_ms=ms(lambda: tr.setup_from_soa(soa, w2c, f, w, h, cfg.znear)),
+out = dict(setup_ms=ms(setup_call), setup_device_ms=setup_device_ms(),
+           setup_host_us=host_us(setup_call),
            binning_ms=ms(lambda: tr.binned_face_lists(tr.bin_triangles(setup, cfg, h, w),
                                                       cfg)),
            census_ms=ms(lambda: tr.bin_triangles(setup, cfg, h, w, return_census=True)),
@@ -1316,6 +1500,7 @@ def main():
     # views (main configuration, bin_block=8, the low oblique view)
     for name, c2w, f in probe_cams:
         _front_vs_plain(name, soa, *_probe_inputs(soa, c2w, f), cfg)
+    _setup_probe(soa, nadir_c2w, 2000.0, cfg)
     rows = [_kernel_vs_plain(name, s, cfg, n_faces, cls, cls_piecewise)
             for name, s in probes]
     ab = None
@@ -2626,9 +2811,14 @@ def _pipeline_phase(mesh, cams, labels, n_classes, devices, card=None,
             return labels[i]
 
         # the main path: int class images from a provider, one device
+        # (its peak device memory, the plan included)
+        on_card = torch.device(dev).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         (fr, vc), first_s, launches, first = _run_pipeline(
             mesh, cams, n_classes, log, class_image_provider=provider,
             prefetch_workers=4, **base)
+        peak_gb = round(torch.cuda.max_memory_allocated() / 1e9, 3) if on_card else None
         k = int(torch.device(dev).type == "cuda")  # CPU tensors launch nothing
         want = {"raster_tiles": n * k, "face_class_counts": n * k, "s_raster": 0,
                 "onehot_class": 0, "face_sums": 0}
@@ -2703,7 +2893,7 @@ def _pipeline_phase(mesh, cams, labels, n_classes, devices, card=None,
                  for b in plan.buckets],
         use_dist=use_dist, launches=launches, retried_views=first["retried_views"],
         first_s=round(first_s, 4), first_views_per_s=round(n / first_s, 4),
-        first_host=host(first), view_counts_equal_planner=True,
+        first_host=host(first), peak_mem_gb=peak_gb, view_counts_equal_planner=True,
         fraction_sums_max_rel_err=rel, runs_equal=True,
         provider_views_per_s={w_: rate(runs[w_]) for w_ in (1, 4)},
         provider_host={w_: host(runs[w_][-1][1]) for w_ in (1, 4)},

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
+_D = ctypes.c_double
 # argtypes of every C entry point: an undeclared pointer would be cut to
 # 32 bits by ctypes
 SIGNATURES = {
@@ -56,10 +57,9 @@ SIGNATURES = {
     # keys, keys_64, values, n, H, W, tw_shift, n_segments, n_channels,
     # scratch, sums, counts, stream
     "gg_face_sums": [_P, _I, _P, _I64, _I, _I, _I, _I64, _I, _P, _P, _P, _P],
-    # soa, n, w2c, f_dev, f_host, inv_ff_host, dist, pcx_dev, pcy_dev,
-    # half_w, half_h, znear, W, H, planes, bbox, valid, stream
-    "gg_triangle_setup": [_P, _I64, _P, _P, _F, _F, _P, _P, _P, _F, _F, _F, _I, _I,
-                          _P, _P, _P, _P],
+    # soa, n, w2c, f_dev, f_host, dist, pcx_dev, pcy_dev, znear, W, H, out
+    # (planes, bbox, valid in one buffer), device, stream
+    "gg_triangle_setup": [_P, _I64, _P, _P, _D, _P, _P, _P, _F, _I, _I, _P, _I, _P],
     # bbox, valid, exclude, n_units, bin_block, global_from, (th, tw, ntx) x 3,
     # n_tiles x 3, wy0, wx0, caps x 4, (cand, counts, face_cand, face_counts)
     # x 4, scratch, census_only, stats, stream
@@ -175,3 +175,13 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def raw_stream(index: int) -> int:
+    """The current CUDA stream of device ``index`` as a pointer-sized int,
+    with no ``torch.cuda.Stream`` built: a few microseconds less than
+    ``stream_ptr`` a call, through a private PyTorch function, which only
+    this module calls."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -13,23 +13,28 @@ eager version launches one kernel per op over all F faces.  On the H100
 the work is bound by bytes: 9 float32 read and 12 plane floats, 4 int32
 box bounds and one valid byte written a face (101 bytes; 101 MB at 1M
 faces, 0.030 ms at 3.35 TB/s).  The kernel is one launch a view, one
-thread a face, reading the camera and the lens terms from device memory
-(no host read).  It is bit-equal to the plain version on the card: every
-product and sum is rounded on its own (``__fmul_rn``, ``__fadd_rn``, no
-FMA contraction) in the plain version's order, the divisions are the
-correctly rounded ones PyTorch's kernels make, and each scalar enters as
-the float32 value PyTorch casts it to (a Python number divides by
-multiplying with its float32 reciprocal, as PyTorch's CUDA division by
-a host scalar does).
+thread a face; a block stages its plane rows in shared memory and writes
+them out as whole lines, and reads the camera and the lens terms from
+device memory once (no host read).  It is bit-equal to the plain version
+on the card: every product and sum is rounded on its own
+(``__fmul_rn``, ``__fadd_rn``, no FMA contraction) in the plain
+version's order, the divisions are the correctly rounded ones PyTorch's
+kernels make, and each scalar enters as the float32 value PyTorch casts
+it to (a Python number divides by multiplying with its float32
+reciprocal, as PyTorch's CUDA division by a host scalar does).
+
+The launch path is short because the main path launches the setup once
+for every view it censuses and runs: one allocation of 65 bytes a face,
+cut into the three outputs (:func:`setup_layout`); no device context
+(the C entry point makes the rows' device current only when it is not);
+one lookup of the current stream; plain numbers to ``ctypes``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import numbers
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from geograypher_tpu_torch.kernels import build
@@ -157,6 +162,32 @@ def setup_from_soa_plain(
     return TriangleSetup(planes=planes, bbox=bbox, valid=valid)
 
 
+def setup_layout(n: int):
+    """Byte offsets of the planes, the boxes and the validity in the one
+    output buffer of an ``n``-face launch, and its size: the planes
+    (n, 12) float32 at 0, the boxes (4, n) int32 at 48 n, the validity
+    (n,) bool at 64 n; 65 n bytes, rounded up to a multiple of 16 (every
+    offset is one).  ``csrc/triangle_setup.cu`` writes the same layout."""
+    return 0, 48 * n, 64 * n, (65 * n + 15) // 16 * 16
+
+
+def _views(buffer, n):
+    """The three outputs of an ``n``-face launch as views of its float32
+    ``buffer`` (``setup_layout``): five view calls, ``as_strided`` on the
+    buffer's dtype views, the fewest that cut three dtypes out of one
+    allocation."""
+    return TriangleSetup(
+        planes=buffer.as_strided((n, 12), (12, 1)),
+        bbox=buffer.view(torch.int32).as_strided((4, n), (n, 1), 12 * n),
+        valid=buffer.view(torch.bool).as_strided((n,), (1,), 64 * n))
+
+
+def _outputs(n: int, device):
+    """(buffer, its TriangleSetup views): the launch's one allocation."""
+    buffer = torch.empty(setup_layout(n)[-1] // 4, dtype=torch.float32, device=device)
+    return buffer, _views(buffer, n)
+
+
 def _device_scalar(name, value, device):
     """A float32 one-element tensor on ``device`` (its pointer for the
     kernel), or raise."""
@@ -204,57 +235,53 @@ def triangle_setup(
     return _launch(tri_soa, world_to_cam, f, image_w, image_h, znear, distortion)
 
 
-def _launch(tri_soa, world_to_cam, f, image_w, image_h, znear, distortion):
-    """Check the kernel's inputs, allocate its outputs and launch it."""
-    global launches
+def _checked(tri_soa, world_to_cam, f, distortion):
+    """Check what the kernel takes; return the C entry point's f and lens
+    arguments (f_dev, f_host, dist8, pcx, pcy): pointers, None where
+    absent, and the host f (0.0 for a tensor f)."""
     dev = tri_soa.device
-    if tri_soa.dtype != torch.float32 or tri_soa.ndim != 2 or tri_soa.shape[0] != 9:
-        raise ValueError(f"tri_soa must be float32 (9, F), got {tri_soa.dtype} "
-                         f"{tuple(tri_soa.shape)}")
-    if not tri_soa.is_contiguous():
-        raise ValueError("tri_soa must be contiguous")
-    if (world_to_cam.dtype != torch.float32 or tuple(world_to_cam.shape) != (4, 4)
+    if (tri_soa.dtype != torch.float32 or tri_soa.ndim != 2 or tri_soa.shape[0] != 9
+            or not tri_soa.is_contiguous()):
+        raise ValueError(f"tri_soa must be a contiguous float32 (9, F), got "
+                         f"{tri_soa.dtype} {tuple(tri_soa.shape)}")
+    if (world_to_cam.dtype != torch.float32 or world_to_cam.shape != (4, 4)
             or world_to_cam.device != dev or not world_to_cam.is_contiguous()):
         raise ValueError(f"world_to_cam must be a contiguous float32 (4, 4) tensor on "
                          f"{dev}, got {world_to_cam.dtype} {tuple(world_to_cam.shape)} "
                          f"on {world_to_cam.device}")
     if isinstance(f, torch.Tensor):
-        f_ptr, f_host, inv_ff = _device_scalar("f", f, dev), 0.0, 0.0
-    elif isinstance(f, numbers.Real):
-        # PyTorch casts a host number to float32 where it meets a float32
-        # tensor, and divides by one as a multiply by its reciprocal
-        f_ptr, f_host = None, float(f)
-        inv_ff = float(np.float32(1.0) / np.float32(float(f) * float(f)))
+        f_args = (_device_scalar("f", f, dev), 0.0)
+    elif isinstance(f, (float, int, numbers.Real)):  # the ABC's check last: slower
+        # the C entry point takes the number as PyTorch does where it meets
+        # a float32 tensor: rounded to float32, a division by f * f made a
+        # multiply by its float32 reciprocal
+        f_args = (None, float(f))
     else:
         raise ValueError(f"triangle_setup: f must be a number or a tensor, got "
                          f"{type(f).__name__}")
-    dist_ptrs = (None, None, None)
-    if distortion is not None:
-        dist8, pcx, pcy = distortion
-        if (not isinstance(dist8, torch.Tensor) or dist8.dtype != torch.float32
-                or tuple(dist8.shape) != (8,) or dist8.device != dev
-                or not dist8.is_contiguous()):
-            raise ValueError(f"triangle_setup: dist8 must be a contiguous float32 (8,) "
-                             f"tensor on {dev}")
-        dist_ptrs = (dist8.data_ptr(), _device_scalar("pcx", pcx, dev),
+    if distortion is None:
+        return f_args + (None, None, None)
+    dist8, pcx, pcy = distortion
+    if (not isinstance(dist8, torch.Tensor) or dist8.dtype != torch.float32
+            or dist8.shape != (8,) or dist8.device != dev or not dist8.is_contiguous()):
+        raise ValueError(f"triangle_setup: dist8 must be a contiguous float32 (8,) "
+                         f"tensor on {dev}")
+    return f_args + (dist8.data_ptr(), _device_scalar("pcx", pcx, dev),
                      _device_scalar("pcy", pcy, dev))
+
+
+def _launch(tri_soa, world_to_cam, f, image_w, image_h, znear, distortion):
+    """Check the kernel's inputs, allocate its outputs and launch it."""
+    global launches
+    scalars = _checked(tri_soa, world_to_cam, f, distortion)
     n = tri_soa.shape[1]
-    planes = torch.empty((n, 12), dtype=torch.float32, device=dev)
-    bbox = torch.empty((4, n), dtype=torch.int32, device=dev)
-    valid = torch.empty((n,), dtype=torch.bool, device=dev)
+    dev = tri_soa.device
+    buffer, out = _outputs(n, dev)
     if n == 0:
-        return TriangleSetup(planes=planes, bbox=bbox, valid=valid)
-    lib = build.load()
-    # launched under the tensor's device, whose stream it is given
-    with torch.cuda.device(dev):
-        err = lib.gg_triangle_setup(
-            tri_soa.data_ptr(), n, world_to_cam.data_ptr(), f_ptr,
-            ctypes.c_float(f_host), ctypes.c_float(inv_ff), *dist_ptrs,
-            ctypes.c_float(image_w / 2.0), ctypes.c_float(image_h / 2.0),
-            ctypes.c_float(znear), image_w, image_h,
-            planes.data_ptr(), bbox.data_ptr(), valid.data_ptr(),
-            build.stream_ptr(dev),
-        )
+        return out
+    err = build.load().gg_triangle_setup(
+        tri_soa.data_ptr(), n, world_to_cam.data_ptr(), *scalars, znear, image_w,
+        image_h, buffer.data_ptr(), dev.index, build.raw_stream(dev.index))
     build.check(err, "gg_triangle_setup")
     launches += 1
-    return TriangleSetup(planes=planes, bbox=bbox, valid=valid)
+    return out

@@ -732,6 +732,89 @@ def test_setup_kernel_refuses_float64(cuda):
     assert tri_setup.launches == before
 
 
+def assert_one_buffer(setup, n):
+    """The three outputs are the layout's views of one storage: planes at
+    0, boxes at 48 n, validity at 64 n bytes, each 16-byte aligned, none
+    overlapping another (the storage rounded up to 16 bytes)."""
+    base = setup.planes.untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in setup)
+    assert setup.planes.untyped_storage().nbytes() == tri_setup.setup_layout(n)[-1]
+    starts = [t.data_ptr() - base for t in setup]
+    assert starts == list(tri_setup.setup_layout(n)[:3])
+    assert all(t.data_ptr() % 16 == 0 for t in setup)
+    ends = [s + t.numel() * t.element_size() for s, t in zip(starts, setup)]
+    assert ends == starts[1:] + [65 * n]
+    assert setup.planes.is_contiguous() and setup.bbox.is_contiguous()
+
+
+# a block holds 512 faces (256 threads, two faces each): one face; the
+# second face of a thread at 255-257; a block less one, a block, a block
+# and one (a full 24,576-byte bulk copy, then a one-face one); two blocks
+# and one; 3000, a last block of 440 faces
+SETUP_SIZES = [1, 255, 256, 257, 511, 512, 513, 1025, 3000]
+
+
+@pytest.mark.parametrize("f_kind", ["host", "tensor"])
+@pytest.mark.parametrize("lens", [False, True])
+@pytest.mark.parametrize("n", SETUP_SIZES)
+def test_setup_kernel_at_block_edges(cuda, n, lens, f_kind):
+    """The block edges of ``SETUP_SIZES``: the kernel bit-equal to the
+    plain version with and without the lens, at a host and at a tensor f;
+    two runs equal; the outputs the layout's views of one buffer."""
+    rows, w2c, f, w, h, dist = front_view(cuda, "brown_conrady")
+    rows = rows[:, rows.shape[1] // 2 - n // 2:][:, :n].contiguous()
+    f = 180.0 if f_kind == "host" else f
+    dist = dist if lens else None
+    before = tri_setup.launches
+    got = tr.setup_from_soa(rows, w2c, f, w, h, distortion=dist)
+    again = tr.setup_from_soa(rows, w2c, f, w, h, distortion=dist)
+    want = tri_setup.setup_from_soa_plain(rows, w2c, f, w, h, distortion=dist)
+    torch.cuda.synchronize()
+    assert tri_setup.launches == before + 2
+    assert_setup_equal(got, want)
+    assert_setup_equal(again, got)
+    assert_one_buffer(got, n)
+    assert n < 256 or want.valid.any()
+
+
+def unruly_rows(device):
+    """(9, 3000) camera-frame rows of a small scene (seen through the eye
+    camera), every 7th face with one vertex replaced in turn by a NaN, an
+    infinity, a vertex behind the near plane, one just past it (projected
+    past 2^30 px) and one far off screen (1e12 m aside)."""
+    rows, w2c, _, _, _, _ = front_view(device, "oblique")
+    cam = torch.cat([rows.view(3, 3, -1), torch.ones_like(rows[:3]).unsqueeze(1)], 1)
+    cam = torch.einsum("ij,vjf->vif", w2c[:3], cam)  # (3 vertices, xyz, F)
+    cam = cam[:, :, :3000].clone()
+    spots = torch.arange(0, 3000, 7, device=device)
+    vertex = spots % 3
+    for k, (axis, value) in enumerate([(0, float("nan")), (1, float("inf")),
+                                       (2, 1e-7), (2, 2e-6), (0, 1e12)]):
+        pick = spots[k::5]
+        cam[vertex[k::5], axis, pick] = value
+    return cam.reshape(9, -1).contiguous()
+
+
+@pytest.mark.parametrize("f_kind", ["host", "tensor"])
+@pytest.mark.parametrize("lens", [False, True])
+def test_setup_kernel_on_unruly_rows(cuda, lens, f_kind):
+    """NaN, infinite, near-plane and far off-screen vertices give the plain
+    version's boxes, validity and sentinel rows, bit for bit."""
+    rows = unruly_rows(cuda)
+    eye = torch.eye(4, device=cuda)
+    f = 180.0 if f_kind == "host" else torch.tensor(180.0, device=cuda)
+    dist = (torch.tensor(FRONT_DIST8, device=cuda), torch.tensor(1.5, device=cuda),
+            torch.tensor(-2.0, device=cuda)) if lens else None
+    got = tr.setup_from_soa(rows, eye, f, 320, 200, distortion=dist)
+    want = tri_setup.setup_from_soa_plain(rows, eye, f, 320, 200, distortion=dist)
+    torch.cuda.synchronize()
+    assert_setup_equal(got, want)
+    spots = torch.arange(0, 3000, 7, device=cuda)
+    # a NaN vertex and one behind the near plane drop their face
+    assert not want.valid[spots[0::5]].any() and not want.valid[spots[2::5]].any()
+    assert want.valid.any()
+
+
 def test_front_end_reads_nothing_back(cuda):
     """Setup and binning (lists and census, level S's exclusion included)
     read nothing back to the host."""

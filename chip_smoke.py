@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's aggregation, render, detection, DTM, polygon, image-selection and ortho-prediction paths once on one CUDA card.
+"""Drive the PyTorch port's aggregation, render, detection, DTM, polygon, image-selection and ortho-prediction paths and its example scripts once on one CUDA card.
 
 Run from the repository root, on a machine with an NVIDIA H100:
 
@@ -174,7 +174,14 @@ Phases (each prints one line; any failure raises and exits nonzero):
    ``rasterize_batch`` over phase 3's views equal to one
    ``rasterize_triangles`` a view, and ``determine_minimum_overlapping_images``
    on 10a's cameras with no ``raster_config`` picking 10a's picks at
-   10a's census caps.
+   10a's census caps;
+12. the eight example scripts of ``examples_torch/`` (the JAX package's
+   ``examples/``, the notebooks' sizes), each ``main`` run on the card and
+   again with ``device="cpu"``: every file and printed line of the two runs
+   equal (aggregated fractions and points within a stated tolerance), each
+   workflow's quantity at the bar of the JAX package's test of it, and the
+   card's launches those of its views (one ``"12"`` line an example, with
+   its card and CPU seconds).
 
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is a JSON object
@@ -200,12 +207,16 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import csv
 import dataclasses
+import importlib
+import io
 import json
 import logging
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -1778,17 +1789,21 @@ def main():
         launches_11 = {name: sum(row[name] for row in launches_11)
                        for name in launches_11[0]}
         _line("11", seconds=round(time.perf_counter() - t11, 3), launches=launches_11)
+        # -- phase 12: the example scripts, on the card against the CPU -------
+        launches_12 = _examples_phase(Path(folder) / "examples", card=smi)
     _line("done", total_s=round(time.perf_counter() - t_start, 3))
-    # the kernels' launches on phases 7, 7c, 8, 9, 10 and 11's paths
+    # the kernels' launches on phases 7, 7c, 8, 9, 10, 11 and 12's paths
     later = {name: launches_7[name] + launches_7a[name] + launches_7r[name]
              + launches_7s[name] + launches_8[name] + launches_9[name]
-             + launches_10[name] + launches_11[name] for name in launches_7}
+             + launches_10[name] + launches_11[name] + launches_12[name]
+             for name in launches_7}
 
     # one line per kernel: launches are the main paths' (phase 3, the
     # level-S path, phase 5's two entry points, phase 6's planned route,
     # phase 6m's first means run, phase 7's main run, phase 7c's chunked
     # aggregation, chunked render and one-device sharded run, phase 8's
-    # project_detections and the paths of phases 9-11); times and bounds
+    # project_detections, the paths of phases 9-11 and phase 12's card runs
+    # of the eight example scripts); times and bounds
     # are the kernel-vs-plain views at the main path's configuration
     # (phase 2's first two views; level S: its two views at the S
     # configuration; face_sums: view 0)
@@ -4696,6 +4711,273 @@ def _batch_phase(mesh, cams, cfg, caps_r, selection_folder, selection_picks, dev
                          picks_equal_10a=True, caps_equal_10a=True),
           view0_equal_plain=True, overflow=0, launches=launches, card=card)
     return launches
+
+
+
+# -- phase 12: the example scripts, on the card against the CPU ------------------
+
+# examples_torch/<name>.py in the order they were ported, each with the
+# launches of the kernels behind the front end that its card run makes
+# (counted through the plain versions on CPU tensors, the same calls):
+# ``raster_tiles`` one a rasterized view (the survey's label renders
+# included), ``face_class_counts`` one a counted view, ``onehot_class``
+# one a one-hot stack the segmentor hands over; ``s_raster`` and
+# ``face_sums`` none.  The setup and binning kernels launch at least once a
+# rasterized view (more with a census: ``_demand_front``).
+EXAMPLES = {
+    # survey renders 8, planned run 8, streaming cross-check 8 (one-hot)
+    "planned_aggregation": dict(raster_tiles=24, face_class_counts=16, onehot_class=8),
+    # survey renders 6, aggregation 6 (one-hot), label_polygons' ortho 1
+    "aggregate_predictions": dict(raster_tiles=13, face_class_counts=6, onehot_class=6),
+    # the rig's label renders 18, aggregation 18 (one-hot)
+    "undercanopy_painting": dict(raster_tiles=36, face_class_counts=18, onehot_class=18),
+    # survey renders 6, save_renders 6
+    "render_labels": dict(raster_tiles=12, face_class_counts=0, onehot_class=0),
+    # no mesh: COLMAP parsing and triangulation only
+    "colmap_detections": dict(raster_tiles=0, face_class_counts=0, onehot_class=0),
+    # survey renders 6, project_detections 6 (index images)
+    "project_detections": dict(raster_tiles=12, face_class_counts=6, onehot_class=0),
+    # realistic 6 and label renders 6, aggregation 6 (one-hot)
+    "concept_figure": dict(raster_tiles=18, face_class_counts=6, onehot_class=6),
+    # survey renders 6, render_labels 6, aggregate_images 6 (one-hot),
+    # visualize's ortho 1
+    "end_to_end_demo": dict(raster_tiles=19, face_class_counts=6, onehot_class=6),
+}
+# the aggregated fractions (aggregated_face_labels.npy) of the card and the
+# CPU: equal, or within a few float32 ulps at 1.0 where a sum's order differs
+EXAMPLE_FRACTION_ATOL = 1e-6
+# located (colmap_detections) and triangulated (end_to_end_demo) points of
+# the card and the CPU, in metres
+EXAMPLE_POINT_ATOL_M = 1e-6
+# the triangulation's float32 ray ends (tens of metres out) of the card and
+# the CPU: within 4 float32 ulps of their magnitude, where the two devices
+# sum a direction's norm in another order
+EXAMPLE_RAY_RTOL = 4 * 2.0 ** -23
+# the bars of the JAX package's tests: tests/test_examples.py; the rig's
+# recovery, tests/test_rig_e2e.py:78; the entry points,
+# tests/test_entrypoints.py:39 (aggregate), :293 (masks), :307 (points)
+EXAMPLE_COLMAP_MAX_ERR_M = 0.1
+EXAMPLE_PLANNED_MIN_AGREE = 0.95
+EXAMPLE_CONCEPT_MIN_AGREE = 0.9
+EXAMPLE_E2E_MIN_RECOVERED = 0.95
+
+
+def _example_run(name, out, device):
+    """Run ``examples_torch.<name>.main(out)`` (``device`` None: its
+    default, the card) with its printed lines captured.  Returns (the
+    return value, the printed text with ``out`` and seconds masked, the
+    seconds, the launches)."""
+    module = importlib.import_module(f"examples_torch.{name}")
+    kwargs = {} if device is None else {"device": device}
+    printed = io.StringIO()
+    _reset_launches()
+    _sync(device or "cuda")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        value = module.main(out, **kwargs)
+    _sync(device or "cuda")
+    seconds = time.perf_counter() - t0
+    text = printed.getvalue().replace(str(out), "OUT")
+    return value, re.sub(r"\d+\.\d+s\b", "<s>", text), seconds, _launches()
+
+
+def _example_printed(text, prefix, suffix=""):
+    """The number between ``prefix`` and ``suffix`` on the printed line
+    that holds ``prefix``."""
+    line = next(ln for ln in text.splitlines() if prefix in ln)
+    return float(line.split(prefix, 1)[1].split(suffix, 1)[0] if suffix
+                 else line.split(prefix, 1)[1].split()[0])
+
+
+def _ecef_m(lat_lon_alt):
+    """(M, 3) lat, lon, altitude points as ECEF metres."""
+    return crs_utils.transform_points(
+        np.asarray(lat_lon_alt, dtype=np.float64).reshape(-1, 3), 4326, 4978)
+
+
+def _geojson_points(path):
+    """(M, 3) lat, lon, altitude of a ``multiview_detections`` points file."""
+    vd = VectorData.read_file(path)
+    return np.array([[g[1], g[0], alt] for g, alt in
+                     zip(vd.geometries, vd.attributes["altitude"])]).reshape(-1, 3)
+
+
+def _matched_gap(points, ref):
+    """The largest distance from a point of ``points`` to its nearest point
+    of ``ref`` (both (M, 3), metres), or inf unless that pairing is one to
+    one: points may come in another order."""
+    points, ref = np.asarray(points, float), np.asarray(ref, float)
+    if points.shape != ref.shape:
+        return math.inf
+    if not len(points):
+        return 0.0
+    d = np.linalg.norm(points[:, None] - ref[None], axis=-1)
+    if len(set(d.argmin(axis=1).tolist())) != len(points):
+        return math.inf
+    return float(d.min(axis=1).max())
+
+
+def _communities_match(x, y):
+    """Two runs' ``communities.npz``: the same partition of the rays, and
+    each community's point (local, and lat/lon through ECEF where there)
+    within ``EXAMPLE_POINT_ATOL_M`` of its counterpart.  Communities are
+    numbered by size, so those of one size may come in another order."""
+    a, b = x["ray_IDs"], y["ray_IDs"]
+    if a.shape != b.shape or not np.array_equal(np.isnan(a), np.isnan(b)):
+        return False
+    pairs = set(zip(a[~np.isnan(a)].tolist(), b[~np.isnan(b)].tolist()))
+    to_y = dict(pairs)
+    if len(to_y) != len(pairs) or len(set(to_y.values())) != len(pairs):
+        return False
+    order = [int(to_y[c]) for c in range(len(x["community_points"]))]
+    if x.files != y.files or len(order) != len(y["community_points"]):
+        return False
+    gap = np.abs(x["community_points"] - y["community_points"][order]).max(initial=0.0)
+    if "community_points_latlon" in x.files:
+        gap = max(gap, float(np.linalg.norm(
+            _ecef_m(x["community_points_latlon"])
+            - _ecef_m(y["community_points_latlon"][order]), axis=1).max(initial=0.0)))
+    return gap <= EXAMPLE_POINT_ATOL_M
+
+
+def _example_files_equal(card_dir, cpu_dir):
+    """Hold every file the two runs of an example wrote against each other:
+    PNGs decoded and equal, count arrays (.npy other than the fractions, a
+    sparse .npz) equal, the fractions within ``EXAMPLE_FRACTION_ATOL``, the
+    triangulation's cached rays (.npz) with ids equal and segment ends
+    within ``EXAMPLE_RAY_RTOL`` of their magnitude, its communities by
+    :func:`_communities_match`.  Returns
+    (files compared, whether every fraction file was equal)."""
+    card_dir, cpu_dir = Path(card_dir), Path(cpu_dir)
+    card = sorted(p.relative_to(card_dir) for p in card_dir.rglob("*") if p.is_file())
+    cpu = sorted(p.relative_to(cpu_dir) for p in cpu_dir.rglob("*") if p.is_file())
+    if card != cpu:
+        raise RuntimeError(f"card and CPU wrote other files: {sorted(set(card) ^ set(cpu))}")
+    n, fractions_equal = 0, True
+    for rel in card:
+        a, b, detail = card_dir / rel, cpu_dir / rel, ""
+        if rel.suffix == ".png":
+            same = np.array_equal(read_image_or_numpy(a), read_image_or_numpy(b))
+        elif rel.suffix == ".npz":
+            x, y = np.load(a), np.load(b)
+            if "format" in x.files:  # a sparse matrix: the detection counts
+                same = _csr_equal(scipy.sparse.load_npz(a), scipy.sparse.load_npz(b))
+            elif rel.name == "communities.npz":
+                same = _communities_match(x, y)
+            else:  # the triangulation's rays: ids exact, segment ends close
+                same = x.files == y.files and all(
+                    x[f].shape == y[f].shape and (
+                        np.allclose(x[f], y[f], rtol=EXAMPLE_RAY_RTOL,
+                                    atol=EXAMPLE_POINT_ATOL_M, equal_nan=True)
+                        if x[f].dtype.kind == "f" else np.array_equal(x[f], y[f]))
+                    for f in x.files)
+                detail = ": " + str({f: (x[f].shape, y[f].shape, float(
+                    np.nanmax(np.abs(x[f] - y[f]))) if x[f].shape == y[f].shape else None)
+                    for f in x.files if f in y.files})
+        elif rel.suffix == ".npy":
+            x, y = np.load(a), np.load(b)
+            same = x.shape == y.shape and np.array_equal(x, y, equal_nan=True)
+            if not same and rel.name == "aggregated_face_labels.npy":
+                fractions_equal = False
+                same = (np.array_equal(np.isnan(x), np.isnan(y))
+                        and np.allclose(x, y, rtol=0, atol=EXAMPLE_FRACTION_ATOL,
+                                        equal_nan=True))
+        else:
+            continue
+        if not same:
+            raise RuntimeError(f"{rel}: the card's file differs from the CPU's{detail}")
+        n += 1
+    return n, fractions_equal
+
+
+def _examples_phase(folder, card=None, device=None, names=tuple(EXAMPLES)):
+    """Phase 12: each script of ``examples_torch/`` run twice through its
+    ``main``, on the card (its default device) and with ``device="cpu"``
+    (the plain versions of the kernels), each into its own folder.
+
+    Card against CPU: every PNG (the survey's label renders, the masks,
+    the composites, the concept figure's views, label images and panels,
+    the overview) decoded and equal, ``planned_counts.npy`` and
+    ``projections_to_mesh.npz`` equal, the aggregated fractions
+    (``aggregated_face_labels.npy``) equal or within
+    ``EXAMPLE_FRACTION_ATOL`` (the line's ``fractions_equal`` says which),
+    the triangulation's cached ray ends within ``EXAMPLE_RAY_RTOL`` of
+    their magnitude, located and triangulated points within
+    ``EXAMPLE_POINT_ATOL_M`` in any order (the Louvain communities are
+    numbered by size, and the card and the CPU may number those of one
+    size apart: the same rays must make them), the return values equal and
+    the printed lines equal but for seconds and the output folder.  Each quantity meets the bar of the JAX package's test
+    of it.  The card's launches must equal :data:`EXAMPLES` for the kernels
+    behind the front end, so no view was re-run after an overflow (the
+    other routes raise on one), with the setup and binning at least once a
+    rasterized view; the CPU run launches nothing.  Returns the launches
+    summed over the card runs.  ``device`` (None: the card) replaces the
+    card in a rehearsal on the CPU, where nothing launches; ``names`` picks
+    examples."""
+    total = {name: 0 for name in _launches()}
+    card_s = cpu_s = 0.0
+    on_card = int(device is None)  # CPU tensors launch nothing
+    t12 = time.perf_counter()
+    for name in names:
+        want = {key: n * on_card for key, n in EXAMPLES[name].items()}
+        card_dir, cpu_dir = Path(folder) / name / "card", Path(folder) / name / "cpu"
+        value, text, seconds, launches = _example_run(name, card_dir, device)
+        value_c, text_c, cpu_seconds, launches_c = _example_run(name, cpu_dir, "cpu")
+        if any(launches_c.values()):
+            raise RuntimeError(f"12 {name}: the CPU run launched {launches_c}")
+        want = dict(want, s_raster=0, face_sums=0)
+        if _back(launches) != want:
+            raise RuntimeError(f"12 {name}: launches {launches}, expected {want}")
+        _demand_front(f"12 {name}", launches, want["raster_tiles"])
+        if text != text_c:
+            raise RuntimeError(f"12 {name}: printed lines differ:\n{text}\n-- cpu --\n{text_c}")
+        n_files, fractions_equal = _example_files_equal(card_dir, cpu_dir)
+        fields = {}
+        if name == "planned_aggregation":
+            agree = _example_printed(text, "argmax agreement on observed faces:")
+            fields = dict(agreement=agree, ok=agree >= EXAMPLE_PLANNED_MIN_AGREE)
+        elif name in ("aggregate_predictions", "undercanopy_painting"):
+            fields = dict(accuracy=value, ok=value == 1.0 and value_c == value)
+        elif name == "render_labels":
+            fields = dict(masks=value, ok=value >= 4 and value_c == value)
+        elif name == "colmap_detections":
+            (located, objects), (located_c, _) = value, value_c
+            err = np.linalg.norm(located[:, None] - objects[None], axis=-1).min(axis=1)
+            gap = _matched_gap(located, located_c)
+            fields = dict(located=len(located), objects=len(objects),
+                          max_err_m=float(err.max()) if len(err) else None,
+                          card_cpu_max_m=gap,
+                          ok=(len(located) == len(objects)
+                              and float(err.max()) < EXAMPLE_COLMAP_MAX_ERR_M
+                              and gap <= EXAMPLE_POINT_ATOL_M))
+        elif name == "project_detections":
+            fields = dict(points=value, ok=value >= 2 and value_c == value)
+        elif name == "concept_figure":
+            fields = dict(agreement=value, ok=value > EXAMPLE_CONCEPT_MIN_AGREE
+                          and value_c == value)
+        elif name == "end_to_end_demo":
+            recovered = _example_printed(text, "recovered", "%") / 100
+            masks = len(list((card_dir / "rendered_masks").rglob("*.png")))
+            pts = [_ecef_m(_geojson_points(d / "triangulated_points.geojson"))
+                   for d in (card_dir, cpu_dir)]
+            gap = _matched_gap(*pts)
+            fields = dict(recovered=recovered, masks=masks, points=len(pts[0]),
+                          card_cpu_max_m=gap,
+                          ok=(recovered > EXAMPLE_E2E_MIN_RECOVERED and masks >= 2
+                              and len(pts[0]) >= 1 and gap <= EXAMPLE_POINT_ATOL_M))
+        if not fields.pop("ok"):
+            raise RuntimeError(f"12 {name}: {fields} misses the JAX test's bar")
+        kernels = sorted(k for k, v in launches.items() if v)
+        _line("12", example=name, seconds=round(seconds, 3),
+              cpu_seconds=round(cpu_seconds, 3), launches=launches, kernels=kernels,
+              **fields, files_equal=n_files, fractions_equal=fractions_equal,
+              equal_cpu=True, overflow=0, card=card)
+        card_s, cpu_s = card_s + seconds, cpu_s + cpu_seconds
+        for k, v in launches.items():
+            total[k] += v
+    _line("12", seconds=round(time.perf_counter() - t12, 3), card_s=round(card_s, 3),
+          cpu_s=round(cpu_s, 3), launches=total, card=card)
+    return total
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@ networkx, and is not said to have imageio or sklearn), and the port keeps
 its own copies of the host helpers it needs.  Checked in subprocesses,
 because tests/conftest.py imports jax into this one."""
 
+import ast
 import json
 import os
 import re
@@ -349,6 +350,35 @@ print("ok")
 """
 
 
+# examples_torch/colmap_detections.py's main on the CPU with those modules
+# refused, imageio too; then chip_smoke.py's phase 12 on the CPU for it and
+# project_detections (both runs on the CPU: nothing launches)
+EXAMPLE_PATH = REFUSE + r"""
+REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+           "imageio", "sklearn", "networkx", "rasterio", "osgeo", "matplotlib")
+refuse(*REFUSED)
+import tempfile
+import numpy as np
+import chip_smoke as cs
+from examples_torch import colmap_detections
+
+with tempfile.TemporaryDirectory() as folder:
+    located, objects = colmap_detections.main(folder, device="cpu")
+    launches = cs._examples_phase(folder + "/12", device="cpu",
+                                  names=("colmap_detections", "project_detections"))
+assert len(located) == len(objects) == colmap_detections.N_OBJECTS
+gaps = np.linalg.norm(located[:, None] - objects[None], axis=-1).min(axis=1)
+assert gaps.max() < 0.1, gaps
+assert not any(launches.values()), launches
+assert not loaded(*REFUSED), loaded(*REFUSED)
+print("ok")
+"""
+# the roots no script of examples_torch/ may import: the IMPORT_ALL list's,
+# and imageio
+EXAMPLE_REFUSED = ("jax", "jaxlib", "geograypher_tpu", "cv2", "PIL", "pandas",
+                   "sklearn", "networkx", "rasterio", "osgeo", "matplotlib", "imageio")
+
+
 def run(code):
     # one intra-op thread: the tiny tensors gain nothing from more, and
     # parallel test workers would oversubscribe the cores
@@ -438,3 +468,50 @@ def test_chip_smoke_refuses_to_run_without_cuda():
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
     assert "CUDA" in out.stderr
+
+
+def _import_roots(path):
+    """(root module, line, at module level) of every import in ``path``,
+    function-level imports included."""
+    tree = ast.parse(path.read_text())
+    top = set(map(id, tree.body))
+    roots = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if not node.level else []
+        else:
+            continue
+        roots += [(n.split(".")[0], node.lineno, id(node) in top) for n in names]
+    return roots
+
+
+def test_examples_import_only_the_port_torch_numpy_scipy_and_the_standard_library():
+    """An AST scan of every import of every ``examples_torch/*.py``, the
+    imports inside functions too (the scripts import lazily in ``main``)."""
+    files = sorted((ROOT / "examples_torch").glob("*.py"))
+    names = {f.stem for f in files} - {"__init__"}
+    assert names == {f.stem for f in (ROOT / "examples").glob("*.py")}
+    allowed = {"geograypher_tpu_torch", "torch", "numpy", "scipy"} | set(
+        sys.stdlib_module_names)
+    lazy = 0
+    for f in files:
+        roots = _import_roots(f)
+        refused = [r for r in roots if r[0] in EXAMPLE_REFUSED]
+        assert not refused, (f.name, refused)
+        other = [r for r in roots if r[0] not in allowed]
+        assert not other, (f.name, other)
+        lazy += sum(not at_top for _, _, at_top in roots)
+    assert lazy >= 8  # the walk reached the imports inside functions
+
+
+def test_example_runs_with_the_jax_package_refused():
+    out = run(EXAMPLE_PATH)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert [r.get("example") for r in rows] == ["colmap_detections",
+                                                "project_detections", None]
+    assert all(r["equal_cpu"] for r in rows[:2])

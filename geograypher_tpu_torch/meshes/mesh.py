@@ -83,6 +83,7 @@ from geograypher_tpu_torch.utils.parsing import (
     parse_metashape_mesh_metadata,
     parse_transform_metashape,
 )
+from geograypher_tpu_torch.utils.profiling import annotate
 from geograypher_tpu_torch.utils.vector import (
     Polygon,
     VectorData,
@@ -1010,18 +1011,21 @@ class TexturedMesh:
         config = pix2face_kwargs.get("config") or self.raster_config
         apply_distortion = pix2face_kwargs.get("apply_distortion")
         for i in range(len(cameras)):
-            if pix2face_kwargs.get("save_to_cache"):
-                # the cached path raises on an overflowing view itself
-                p2f = self._pix2face_device(
-                    cameras, i, render_img_scale=render_img_scale,
-                    **pix2face_kwargs,
-                )
-                overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-            else:
-                p2f, overflow = self._rasterize_view(
-                    cameras, i, render_img_scale, apply_distortion, config
-                )
-            yield render_texture(p2f, tex_dev), overflow
+            with annotate("render.view"):
+                if pix2face_kwargs.get("save_to_cache"):
+                    # the cached path raises on an overflowing view itself
+                    p2f = self._pix2face_device(
+                        cameras, i, render_img_scale=render_img_scale,
+                        **pix2face_kwargs,
+                    )
+                    overflow = torch.zeros((), dtype=torch.int64,
+                                           device=self.device)
+                else:
+                    p2f, overflow = self._rasterize_view(
+                        cameras, i, render_img_scale, apply_distortion, config
+                    )
+                image = render_texture(p2f, tex_dev)
+            yield image, overflow
 
     def render_flat(
         self,
@@ -1460,7 +1464,9 @@ class TexturedMesh:
         renders = self._render_flat_device(cameras, render_image_scale, render_kwargs)
         overflowed = []
         for i, (img, overflow) in enumerate(renders):
-            if int(overflow):
+            with annotate("render.overflow_read"):
+                dropped = int(overflow)
+            if dropped:
                 overflowed.append(i)
                 continue
             fname = cameras.image_filenames[i]
@@ -1475,15 +1481,18 @@ class TexturedMesh:
                 cols = torch.as_tensor(nearest_indices(
                     data.shape[1], sensor["image_width"]), device=self.device)
                 data = data[rows[:, None], cols[None, :]]
-            if output_extension == ".npy":
-                write_image(out_path, data.cpu().numpy())
-                continue
-            mask = torch.where(torch.isfinite(data), data, 255.0)
-            mask = mask.clamp(0, 255).to(torch.uint8)
-            if mask.ndim == 3 and mask.shape[-1] in (3, 4):
-                mask = mask[..., [2, 1, 0, 3][: mask.shape[-1]]]
-            write_image(out_path, mask.cpu().numpy())
-            if make_composites and fname is not None and Path(fname).exists():
+            with annotate("render.download"):
+                if output_extension == ".npy":
+                    mask = data.cpu().numpy()
+                else:
+                    mask = torch.where(torch.isfinite(data), data, 255.0)
+                    mask = mask.clamp(0, 255).to(torch.uint8)
+                    if mask.ndim == 3 and mask.shape[-1] in (3, 4):
+                        mask = mask[..., [2, 1, 0, 3][: mask.shape[-1]]]
+                    mask = mask.cpu().numpy()
+            write_image(out_path, mask)
+            if (make_composites and output_extension != ".npy"
+                    and fname is not None and Path(fname).exists()):
                 save_composite(data.cpu().numpy(), fname,
                                out_path.with_name(out_path.stem + "_composite.png"),
                                self.IDs_to_labels)

@@ -57,6 +57,7 @@ from geograypher_tpu_torch.parallel.sharding import (
     sum_over_devices,
 )
 from geograypher_tpu_torch.utils.device import PinnedUpload
+from geograypher_tpu_torch.utils.profiling import _StageTimer
 
 logger = logging.getLogger(__name__)
 
@@ -84,7 +85,7 @@ class _DeviceRunner:
     the loop that feeds steps of views through them."""
 
     def __init__(self, device_mesh, tri_soa, params, n_classes, image_h,
-                 image_w, use_dist, load, prefetch_workers):
+                 image_w, use_dist, load, prefetch_workers, timer):
         self.mesh = device_mesh
         self.soa = {dev: tri_soa.to(dev) for dev in set(device_mesh)}
         p = torch.as_tensor(np.asarray(params, np.float32))
@@ -99,8 +100,7 @@ class _DeviceRunner:
         self.use_dist = use_dist
         self.load = load
         self.workers = max(1, int(prefetch_workers))
-        self.fetch_wait_s = 0.0  # the main thread waiting on the workers
-        self.upload_s = 0.0  # the main thread inside the uploads
+        self.timer = timer  # the call's spans and host times
 
     def run(self, steps) -> list:
         """Load, upload and launch every view of ``steps``, prefetching two
@@ -119,14 +119,15 @@ class _DeviceRunner:
                 for d, views in enumerate(shards):
                     if not views:
                         continue
-                    t0 = time.perf_counter()
-                    stack = np.stack([futures.pop(pos + j).result()
-                                      for j in range(len(views))])
+                    with self.timer("pipeline.fetch_wait"):
+                        loaded = [futures.pop(pos + j).result()
+                                  for j in range(len(views))]
+                        with self.timer("pipeline.stack"):
+                            stack = np.stack(loaded)
+                        del loaded  # the workers' arrays go before the upload
                     pos += len(views)
-                    t1 = time.perf_counter()
-                    labels = self.uploads[d](stack)
-                    self.fetch_wait_s += t1 - t0
-                    self.upload_s += time.perf_counter() - t1
+                    with self.timer("pipeline.upload"):
+                        labels = self.uploads[d](stack)
                     for k, view in enumerate(views):
                         overs.append((view, self._view(d, config, view,
                                                        labels[k])))
@@ -135,14 +136,15 @@ class _DeviceRunner:
         return overs
 
     def _view(self, d, config: RasterConfig, view: int, labels) -> torch.Tensor:
-        dev = self.mesh[d]
-        soa, row = self.soa[dev], self.params[dev][view]
-        counts, over, _ = fused_view_class_counts(
-            soa, row[:16].reshape(4, 4), row[16], row[17:25], row[25], row[26],
-            labels, self.w, self.h, config, soa.shape[1], self.n_classes,
-            self.use_dist,
-        )
-        _planner.add_view_gated(self.accs[d], counts, over, weighted=True)
+        with self.timer("pipeline.enqueue"):
+            dev = self.mesh[d]
+            soa, row = self.soa[dev], self.params[dev][view]
+            counts, over, _ = fused_view_class_counts(
+                soa, row[:16].reshape(4, 4), row[16], row[17:25], row[25],
+                row[26], labels, self.w, self.h, config, soa.shape[1],
+                self.n_classes, self.use_dist,
+            )
+            _planner.add_view_gated(self.accs[d], counts, over, weighted=True)
         return over
 
 
@@ -199,43 +201,78 @@ def aggregate_class_images_distributed(
     numpy: ``fraction_sums`` is the sum over views of each view's
     per-face class fraction, and ``fraction_sums / view_counts`` (NaN
     where ``view_counts == 0``) is what
-    ``TexturedMesh.aggregate_projected_images`` returns.  One INFO log
-    record of this module's logger carries the run's host times, views
-    and retries as its ``pipeline_stats`` attribute.
+    ``TexturedMesh.aggregate_projected_images`` returns.
+
+    One INFO log record of this module's logger carries the run's counts
+    and host times as its ``pipeline_stats`` dict: ``views``, ``devices``,
+    ``views_per_step``, ``prefetch_workers``, ``retried_views`` and
+    ``retry_rounds``, and these seconds, each (but ``seconds``) the time
+    of the span in brackets, which a running profiler records too
+    (``utils/profiling.py``):
+
+    * ``seconds``: the whole call;
+    * ``prepare_s`` (``pipeline.prepare``): from the call's start up to the
+      runner: the rows on the devices, the camera batch, the packed view
+      rows, the provider, the accumulators;
+    * ``plan_s`` (``planner.plan``): the census and sizing of a plan not
+      found in the mesh's cache, its ``plan_seconds`` (the retry rounds'
+      re-census is not in it);
+    * ``load_s`` (``pipeline.load``): the prefetch workers inside the
+      provider, the clip and the cast, added over the workers (they
+      overlap the main thread);
+    * ``fetch_wait_s`` (``pipeline.fetch_wait``): the main thread taking a
+      step's class images from the workers and stacking them; ``stack_s``
+      (``pipeline.stack``): the stack alone;
+    * ``upload_s`` (``pipeline.upload``): the main thread inside the
+      two-slot pinned upload; ``upload_wait_s`` (``upload.wait``): inside
+      it, blocked on a slot's last copy; ``stage_s`` (``upload.stage``):
+      inside it, the copy into the pinned buffer;
+    * ``enqueue_s`` (``pipeline.enqueue``): the main thread launching the
+      views' chains and their gated adds;
+    * ``sync_s`` (``pipeline.sync``): the fetches of the overflow flags,
+      every retry round's included, and the sum and download of the
+      accumulators.
+
+    ``prepare_s``, ``plan_s``, ``fetch_wait_s``, ``upload_s``, ``enqueue_s``
+    and ``sync_s`` are disjoint parts of ``seconds``.
     """
     del integrity_check  # a Mosaic guard: nothing to check here
     if label_transport not in LABEL_TRANSPORTS:
         raise ValueError(f"unknown label_transport {label_transport!r}")
     t_call = time.perf_counter()
-    device_mesh = make_view_mesh(device_mesh)
-    n_dev = len(device_mesh)
-    group = max(1, int(views_per_step))
-    config = config or mesh.raster_config
-    tri_soa = mesh._tri_soa_device(cameras, config.bin_block)
-    batch = cameras.get_camera_batch(image_scale=aggregate_img_scale, device="cpu")
-    h, w = batch.image_height, batch.image_width
-    if class_image_provider is None:
-        class_image_provider = _planner.default_class_image_provider(
-            cameras, aggregate_img_scale)
-    # one lens model for the whole survey, as the census and the runs share
-    # it (the planned paths' rule)
-    use_dist = bool(
-        (apply_distortion is None or apply_distortion)
-        and (bool(batch.distortion.any()) or bool(batch.cx.any())
-             or bool(batch.cy.any()))
-    )
-    n = len(cameras)
-    params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
+    timer = _StageTimer()
+    with timer("pipeline.prepare"):
+        device_mesh = make_view_mesh(device_mesh)
+        n_dev = len(device_mesh)
+        group = max(1, int(views_per_step))
+        config = config or mesh.raster_config
+        tri_soa = mesh._tri_soa_device(cameras, config.bin_block)
+        batch = cameras.get_camera_batch(image_scale=aggregate_img_scale,
+                                         device="cpu")
+        h, w = batch.image_height, batch.image_width
+        if class_image_provider is None:
+            class_image_provider = _planner.default_class_image_provider(
+                cameras, aggregate_img_scale)
+        # one lens model for the whole survey, as the census and the runs
+        # share it (the planned paths' rule)
+        use_dist = bool(
+            (apply_distortion is None or apply_distortion)
+            and (bool(batch.distortion.any()) or bool(batch.cx.any())
+                 or bool(batch.cy.any()))
+        )
+        n = len(cameras)
+        params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
 
-    def load(view: int) -> np.ndarray:
-        labels = np.clip(np.asarray(class_image_provider(view)), -1, None)
-        if labels.shape != (h, w):
-            raise ValueError(f"view {view}: class image of {labels.shape} for "
-                             f"images of {(h, w)}")
-        return _planner.as_label_dtype(labels, n_classes)
+        def load(view: int) -> np.ndarray:
+            with timer("pipeline.load"):
+                labels = np.clip(np.asarray(class_image_provider(view)), -1, None)
+                if labels.shape != (h, w):
+                    raise ValueError(f"view {view}: class image of {labels.shape} "
+                                     f"for images of {(h, w)}")
+                return _planner.as_label_dtype(labels, n_classes)
 
-    runner = _DeviceRunner(device_mesh, tri_soa, params, n_classes, h, w,
-                           use_dist, load, prefetch_workers)
+        runner = _DeviceRunner(device_mesh, tri_soa, params, n_classes, h, w,
+                               use_dist, load, prefetch_workers, timer)
     plan_s = 0.0
     if n and auto_size_fold:
         key = ("plan", config, use_dist, w, h, cameras.get_camera_hash())
@@ -255,8 +292,9 @@ def aggregate_class_images_distributed(
 
     retried, attempt = 0, 0
     while overs:
-        # every overflow in one fetch
-        flags = torch.stack([o.to(device_mesh[0]) for _, o in overs]).cpu().numpy()
+        with timer("pipeline.sync"):  # every overflow in one fetch
+            flags = torch.stack([o.to(device_mesh[0])
+                                 for _, o in overs]).cpu().numpy()
         bad = [v for (v, _), flag in zip(overs, flags) if flag]
         if not bad:
             break
@@ -276,16 +314,19 @@ def aggregate_class_images_distributed(
         )
         overs = runner.run(_deal([(sub_plan.buckets[0].config, bad)], n_dev, group))
 
-    fracs = sum_over_devices([acc[0] for acc in runner.accs])[: mesh.n_faces]
-    views = sum_over_devices([acc[1] for acc in runner.accs])[: mesh.n_faces]
-    fracs, views = fracs.cpu().numpy(), views.cpu().numpy()
+    with timer("pipeline.sync"):
+        fracs = sum_over_devices([acc[0] for acc in runner.accs])[: mesh.n_faces]
+        views = sum_over_devices([acc[1] for acc in runner.accs])[: mesh.n_faces]
+        fracs, views = fracs.cpu().numpy(), views.cpu().numpy()
     stats = dict(
         views=n, devices=[str(d) for d in device_mesh], views_per_step=group,
         prefetch_workers=runner.workers, seconds=time.perf_counter() - t_call,
-        plan_s=plan_s, fetch_wait_s=runner.fetch_wait_s,
-        upload_s=runner.upload_s,
+        plan_s=plan_s, retried_views=retried, retry_rounds=attempt,
         upload_wait_s=sum(u.wait_s for u in runner.uploads),
-        retried_views=retried, retry_rounds=attempt,
+        stage_s=sum(u.stage_s for u in runner.uploads),
+        **{f"{key}_s": timer.seconds(f"pipeline.{key}") for key in (
+            "prepare", "load", "fetch_wait", "stack", "upload", "enqueue",
+            "sync")},
     )
     logger.info("pipeline: %d views on %d devices in %.3f s, %d re-run",
                 n, n_dev, stats["seconds"], retried,

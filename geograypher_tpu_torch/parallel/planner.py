@@ -50,6 +50,7 @@ from geograypher_tpu_torch.ops.rasterize import (
 )
 from geograypher_tpu_torch.ops.subtile import subtile_mask8
 from geograypher_tpu_torch.utils.device import PinnedUpload
+from geograypher_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -229,6 +230,7 @@ def census_config_of(config: RasterConfig) -> RasterConfig:
     return dataclasses.replace(config, caps=(8, 8, 8, 8))
 
 
+@annotate("planner.plan")
 def plan_aggregation(
     tri_soa: torch.Tensor,
     params: np.ndarray,

@@ -2,11 +2,12 @@
 
 from __future__ import annotations
 
-import time
 import typing
 
 import numpy as np
 import torch
+
+from geograypher_tpu_torch.utils.profiling import _StageTimer
 
 
 def resolve_device(device, caller: str) -> torch.device:
@@ -36,8 +37,10 @@ class PinnedUpload:
     blocks only before it refills a slot, on the copy that last read that
     slot (two uploads back), never on the compute chain, so the copy of
     one view overlaps the kernels of the view before it.  ``wait_s`` adds
-    up the seconds the host blocked there.  On a CPU device the array is
-    wrapped as it is."""
+    up the seconds the host blocked there (span ``upload.wait``), and
+    ``stage_s`` those it spent making the array contiguous and copying it
+    into the staging buffer (span ``upload.stage``).  On a CPU device the
+    array is wrapped as it is, inside ``upload.stage``."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -45,23 +48,33 @@ class PinnedUpload:
         self._read: list = [None, None]  # event of the copy out of each slot
         self._slot = 0
         self._stream: typing.Optional[torch.cuda.Stream] = None
-        self.wait_s = 0.0
+        self._timer = _StageTimer()
+
+    @property
+    def wait_s(self) -> float:
+        return self._timer.seconds("upload.wait")
+
+    @property
+    def stage_s(self) -> float:
+        return self._timer.seconds("upload.stage")
 
     def __call__(self, array: np.ndarray) -> torch.Tensor:
-        host = torch.as_tensor(np.ascontiguousarray(array))
-        if self.device.type != "cuda" or host.numel() == 0:
-            return host.to(self.device)
-        k, self._slot = self._slot, 1 - self._slot
-        if self._read[k] is not None:
-            t0 = time.perf_counter()
-            self._read[k].synchronize()  # the copy two uploads back has left
-            self.wait_s += time.perf_counter() - t0
-        n_bytes = host.numel() * host.element_size()
-        if self._stage[k] is None or self._stage[k].numel() < n_bytes:
-            self._stage[k] = torch.empty(n_bytes, dtype=torch.uint8,
-                                         pin_memory=True)
-        stage = self._stage[k][:n_bytes].view(host.dtype).view(host.shape)
-        stage.copy_(host)
+        on_card = self.device.type == "cuda" and np.size(array) > 0
+        if on_card:
+            k, self._slot = self._slot, 1 - self._slot
+            if self._read[k] is not None:
+                with self._timer("upload.wait"):
+                    self._read[k].synchronize()  # the copy two uploads back has left
+        with self._timer("upload.stage"):
+            host = torch.as_tensor(np.ascontiguousarray(array))
+            if not on_card:
+                return host.to(self.device)
+            n_bytes = host.numel() * host.element_size()
+            if self._stage[k] is None or self._stage[k].numel() < n_bytes:
+                self._stage[k] = torch.empty(n_bytes, dtype=torch.uint8,
+                                             pin_memory=True)
+            stage = self._stage[k][:n_bytes].view(host.dtype).view(host.shape)
+            stage.copy_(host)
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         consumer = torch.cuda.current_stream(self.device)

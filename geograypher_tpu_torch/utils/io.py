@@ -21,6 +21,7 @@ import numpy as np
 
 from geograypher_tpu_torch.constants import PATH_TYPE
 from geograypher_tpu_torch.utils.files import ensure_containing_folder
+from geograypher_tpu_torch.utils.profiling import annotate
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels of the PNG colour types the codec handles: gray, RGB,
@@ -205,12 +206,15 @@ def write_image(filename: PATH_TYPE, image: np.ndarray,
     filename = ensure_containing_folder(filename)
     suffix = filename.suffix.lower()
     if suffix == ".npy":
-        np.save(filename, image)
+        with annotate("io.write"):
+            np.save(filename, image)
         return filename.stat().st_size
     if suffix != ".png":
         raise ValueError(f"cannot write {filename}: only .png and .npy are written")
-    data = encode_png(image, level)
-    filename.write_bytes(data)
+    with annotate("io.encode"):
+        data = encode_png(image, level)
+    with annotate("io.write"):
+        filename.write_bytes(data)
     return len(data)
 
 

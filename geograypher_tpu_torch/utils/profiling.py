@@ -1,4 +1,4 @@
-"""Stage timing and device traces: the port's counterpart of
+"""Stage timing, spans and device traces: the port's counterpart of
 ``geograypher_tpu/utils/profiling.py`` on ``torch.profiler``.
 
 Usage::
@@ -12,12 +12,36 @@ Usage::
         run_pipeline()
 
     print(stage_timer.report())
+
+A stage of a :class:`_StageTimer` is also a span: while a profiler records
+(``device_trace``, or any ``torch.profiler.profile``), it and every
+:func:`annotate` region appear on the trace as ``user_annotation`` events
+of the thread that opened them, on the clock of the card's kernel events.
+With no profiler recording a span opens nothing: a running profiler is
+the only switch.  No span waits for the device or reads a device value.
+
+The spans the port opens on its hot paths:
+
+* ``parallel/pipeline.py`` ``aggregate_class_images_distributed``, one
+  timer a call, each span the ``pipeline_stats`` key in brackets:
+  ``pipeline.prepare`` (``prepare_s``), ``pipeline.load`` on the prefetch
+  workers' threads (``load_s``; on a trace only where the profiler records
+  every thread), ``pipeline.fetch_wait`` (``fetch_wait_s``)
+  around ``pipeline.stack`` (``stack_s``), ``pipeline.upload``
+  (``upload_s``) around the upload's ``upload.wait`` (``upload_wait_s``) and
+  ``upload.stage`` (``stage_s``), ``pipeline.enqueue`` (``enqueue_s``) and
+  ``pipeline.sync`` (``sync_s``);
+* ``parallel/planner.py``: ``planner.plan`` around ``plan_aggregation``;
+* ``meshes/mesh.py`` ``save_renders``: ``render.view`` (a view's raster and
+  texture launches), ``render.overflow_read``, ``render.download``; and
+  ``utils/io.py`` ``write_image``: ``io.encode``, ``io.write``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -28,29 +52,61 @@ import torch
 logger = logging.getLogger("geograypher_tpu_torch.profiling")
 
 
+def profiler_recording() -> bool:
+    """Whether a ``torch.profiler`` records in this process.  Reads the flag
+    every profiler sets on entry and clears on exit through a private
+    PyTorch name, anew on every call (a bound copy would miss a profiler
+    started later); the one such read of this module."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region that shows up on the trace's timeline; opens
+    ``record_function`` only while a profiler records."""
+    if not profiler_recording():
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
+
 class _StageTimer:
     """Accumulating named wall-clock stage timer (work enqueued on a card
-    counts where the stage waits for it)."""
+    counts where the stage waits for it); each stage is an :func:`annotate`
+    span too.  Threads may add to one name at once."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def __call__(self, name: str, log: bool = False):
         t0 = time.perf_counter()
         try:
-            yield
+            if profiler_recording():
+                with torch.profiler.record_function(name):
+                    yield
+            else:
+                yield
         finally:
             dt = time.perf_counter() - t0
-            self.totals[name] += dt
-            self.counts[name] += 1
+            with self._lock:
+                self.totals[name] += dt
+                self.counts[name] += 1
             if log:
                 logger.info("%s: %.1f ms", name, dt * 1e3)
 
+    def seconds(self, name: str) -> float:
+        """Total seconds of ``name``; 0.0 for a stage never entered."""
+        with self._lock:
+            return self.totals.get(name, 0.0)
+
     def reset(self):
-        self.totals.clear()
-        self.counts.clear()
+        with self._lock:
+            self.totals.clear()
+            self.counts.clear()
 
     def report(self) -> str:
         lines = ["stage                          total_s   calls   mean_ms"]
@@ -79,10 +135,3 @@ def device_trace(log_dir: str, enabled: bool = True):
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(folder / "trace.json"))
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region that shows up on the trace's timeline."""
-    with torch.profiler.record_function(name):
-        yield

@@ -9,9 +9,14 @@ Raster-raster: equal at two resolutions either way round, with the class
 list the JAX package builds (-1 and the nodata value included) or a
 given one.  The comprehensive metrics equal, NaNs included; the indexing
 helpers equal; the stage timer's report in the JAX format; the plots run
-with this machine's matplotlib and raise naming it without."""
+with this machine's matplotlib and raise naming it without.  The port's
+spans: a small survey aggregation and a small ``save_renders`` under a
+profiler export every span of the hot paths, nested on the main thread,
+and open nothing without one."""
 
+import json
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -24,8 +29,12 @@ from geograypher_tpu.utils.raster import Raster as JaxRaster
 from geograypher_tpu.utils.raster import write_geotiff as jax_write_geotiff
 from geograypher_tpu.utils.vector import Polygon as JaxPolygon
 from geograypher_tpu.utils.vector import VectorData as JaxVectorData
+from geograypher_tpu_torch.cameras.core import CameraSet
+from geograypher_tpu_torch.meshes.mesh import TexturedMesh
 from geograypher_tpu_torch.ops.aggregate import find_argmax_nonzero_value
+from geograypher_tpu_torch.parallel import pipeline
 from geograypher_tpu_torch.utils import indexing, profiling
+from geograypher_tpu_torch.utils.fixtures import make_grid_mesh, nadir_camera
 from geograypher_tpu_torch.utils import prediction_metrics as tm
 from tests.test_torch_rasterize import one_torch_thread  # noqa: F401
 
@@ -279,3 +288,141 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with profiling.device_trace(tmp_path / "off", enabled=False):
         pass
     assert not (tmp_path / "off").exists()
+
+
+# -- the port's spans -----------------------------------------------------------
+
+# the spans each path opens on its main thread; ``upload.wait`` blocks only
+# on a card's copy, and ``pipeline.load`` runs on the prefetch workers
+AGG_SPANS = ("pipeline.prepare", "planner.plan", "pipeline.fetch_wait",
+             "pipeline.stack", "pipeline.upload", "upload.stage",
+             "pipeline.enqueue", "pipeline.sync")
+RENDER_SPANS = ("render.view", "render.overflow_read", "render.download",
+                "io.encode", "io.write")
+N_VIEWS = 6
+
+
+def small_survey(tmp_path):
+    """A textured 288-face grid and 6 nadir 80 x 80 views, each named after
+    an image under ``tmp_path``, with seeded class images: a fresh mesh, so
+    the pipeline's plan cache misses."""
+    verts, faces = make_grid_mesh(n=13, size=4.0,
+                                  z_fn=lambda x, y: 0.1 * np.sin(3 * x))
+    mesh = TexturedMesh((verts, faces), device="cpu")
+    mesh.set_texture(np.arange(mesh.n_faces) % 3, is_vertex=False)
+    c2ws = []
+    for k in range(N_VIEWS):
+        c2w = nadir_camera(4.0, 40.0, 80)
+        c2w[:3, 3] += (0.1 * k + 0.0123, -0.0217, 0.0)
+        c2ws.append(c2w)
+    cams = CameraSet(c2ws, {0: {"f": 40.0, "image_width": 80, "image_height": 80}},
+                     sensor_IDs=[0] * N_VIEWS)
+    cams.image_filenames = [tmp_path / f"v{k}.png" for k in range(N_VIEWS)]
+    labels = np.random.default_rng(7).integers(-1, 3, (N_VIEWS, 80, 80))
+    return mesh, cams, labels
+
+
+def aggregate_and_render(tmp_path):
+    mesh, cams, labels = small_survey(tmp_path)
+    out = pipeline.aggregate_class_images_distributed(
+        mesh, cams, 3, class_image_provider=lambda i: labels[i], device_mesh=["cpu"])
+    mesh.save_renders(cams, output_folder=tmp_path / "masks")
+    return out
+
+
+def spans_of(events) -> dict:
+    """{name: [(tid, start, end)]} of a Chrome trace's annotations."""
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation":
+            start = float(e["ts"])
+            spans.setdefault(e["name"], []).append(
+                (e["tid"], start, start + float(e["dur"])))
+    return spans
+
+
+def inside(inner, outer) -> bool:
+    """Every ``inner`` span lies in an ``outer`` span of its thread."""
+    return all(any(t == to and s0 >= so and e0 <= eo for to, so, eo in outer)
+               for t, s0, e0 in inner)
+
+
+def test_spans_on_the_trace_nested_on_the_main_thread(tmp_path):
+    with profiling.device_trace(tmp_path / "trace"):
+        aggregate_and_render(tmp_path)
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    spans = spans_of(events)
+    assert set(AGG_SPANS + RENDER_SPANS) <= set(spans), sorted(spans)
+    main = {t for name in AGG_SPANS + RENDER_SPANS for t, _, _ in spans[name]}
+    assert main == {threading.get_native_id()}
+    for name in ("pipeline.fetch_wait", "pipeline.upload", "pipeline.stack",
+                 "upload.stage"):
+        assert len(spans[name]) == 2, name  # a step of 4 views and one of 2
+    assert len(spans["pipeline.enqueue"]) == N_VIEWS
+    for name in RENDER_SPANS:
+        assert len(spans[name]) == N_VIEWS, name
+    assert inside(spans["pipeline.stack"], spans["pipeline.fetch_wait"])
+    assert inside(spans["upload.stage"], spans["pipeline.upload"])
+
+
+def test_load_spans_on_the_prefetch_threads(tmp_path):
+    """A profiler that records every thread shows ``pipeline.load`` on the
+    workers' threads, one a view, and never on the main thread."""
+    mesh, cams, labels = small_survey(tmp_path)
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(experimental_config=config) as prof:
+        pipeline.aggregate_class_images_distributed(
+            mesh, cams, 3, class_image_provider=lambda i: labels[i],
+            device_mesh=["cpu"], prefetch_workers=2)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = spans_of(json.loads((tmp_path / "trace.json").read_text())["traceEvents"])
+    loads = {t for t, _, _ in spans["pipeline.load"]}
+    assert len(spans["pipeline.load"]) == N_VIEWS
+    assert threading.get_native_id() not in loads and 1 <= len(loads) <= 2
+
+
+def test_no_span_opens_without_a_profiler(tmp_path, monkeypatch):
+    """With no profiler recording, no span enters ``record_function``: the
+    aggregation, the mask writer and a timer run with it raising."""
+    def refused(name):
+        raise AssertionError(f"record_function({name!r}) entered with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    assert not profiling.profiler_recording()
+    fracs, views = aggregate_and_render(tmp_path)
+    assert views.max() > 0 and len(list((tmp_path / "masks").iterdir())) == N_VIEWS
+    timer = profiling._StageTimer()
+    with timer("a"), profiling.annotate("b"):
+        pass
+    assert timer.counts == {"a": 1}
+    with torch.profiler.profile():  # the gate opens under a profiler
+        assert profiling.profiler_recording()
+        with pytest.raises(AssertionError, match="entered"):
+            with profiling.annotate("b"):
+                pass
+    assert not profiling.profiler_recording()
+
+
+def test_stage_timer_threads_lose_no_update():
+    """More threads than cores adding to one name, switching every few
+    microseconds: every entry is counted."""
+    timer = profiling._StageTimer()
+    threads, per = 16, 400
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(per):
+                with timer("shared"):
+                    pass
+
+        pool = [threading.Thread(target=work) for _ in range(threads)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(interval)
+    assert timer.counts["shared"] == threads * per
+    assert timer.seconds("shared") > 0 and timer.seconds("never") == 0.0

@@ -222,6 +222,36 @@ def run_logged(caplog, **kwargs):
                         if r.levelno == logging.WARNING]
 
 
+# the record's disjoint parts of ``seconds``, and its times nested in them
+DISJOINT = ("prepare_s", "plan_s", "fetch_wait_s", "upload_s", "enqueue_s", "sync_s")
+INNER = ("load_s", "stack_s", "stage_s", "upload_wait_s")
+
+
+@pytest.mark.parametrize("caps", [None, (16, 16, 16, 16)], ids=["planned", "retried"])
+def test_pipeline_stats_parts_nest_and_add_up(pinhole, caplog, caps):
+    """Every host time of the record is there and non-negative, the inner
+    times lie inside theirs, and the disjoint parts add to no more than the
+    call; a planned call on a fresh mesh plans, a call whose views all
+    overflow re-runs them."""
+    tmesh, tseg, *_ = pinhole
+    mesh = TexturedMesh((tmesh.verts, tmesh.faces),
+                        raster_config=tmesh.raster_config, device="cpu")
+    kwargs = {} if caps is None else dict(
+        auto_size_fold=False,
+        config=dataclasses.replace(tmesh.raster_config, caps=caps))
+    _, stats, _ = run_logged(caplog, mesh=mesh, cameras=tseg, n_classes=N_CLASSES,
+                             device_mesh=["cpu", "cpu"], **kwargs)
+    assert all(stats[k] >= 0 for k in DISJOINT + INNER + ("seconds",))
+    # a CPU upload never waits; only a plan not in the mesh's cache is timed
+    assert all(stats[k] > 0 for k in DISJOINT + INNER
+               if k not in ("plan_s", "upload_wait_s"))
+    assert (stats["plan_s"] > 0) == (caps is None)
+    assert stats["retried_views"] == (0 if caps is None else len(tseg))
+    assert stats["stack_s"] <= stats["fetch_wait_s"]
+    assert stats["stage_s"] + stats["upload_wait_s"] <= stats["upload_s"]
+    assert sum(stats[k] for k in DISJOINT) <= stats["seconds"]
+
+
 def test_undersized_caps_gated_then_equal(pinhole, caplog):
     """Caps every view overflows (JAX :163): each view adds nothing, is
     re-censused, re-sized and re-run, re-read through the provider, and
@@ -492,6 +522,7 @@ def test_pinned_upload_wraps_on_cpu():
         out = upload(a)
         assert out.device.type == "cpu" and np.array_equal(out.numpy(), a)
     assert upload.wait_s == 0.0 and upload._stage == [None, None]
+    assert upload.stage_s > 0  # the wrap, timed as the staging copy
 
 
 WRAPPERS = {

@@ -29,11 +29,14 @@ camera far above the footprint through the same raster chain, tiled past
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import logging
+import os
 import time
 import typing
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -125,6 +128,67 @@ def _check_batch_size(batch_size: int) -> None:
     loops, as the JAX package's, do not use."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+
+
+#: most host threads of a ``save_renders`` call's :class:`_MaskWriter`: a
+#: 4K mask's zlib encode takes about six times the main thread's work on
+#: the view
+MASK_WRITER_MAX_THREADS = 8
+
+
+class _MaskWriter:
+    """The files of :meth:`TexturedMesh.save_renders`, each encoded and
+    written by :func:`write_image` on a pool of host threads while the
+    main thread renders the next views; the threads get host arrays only.
+
+    The pool takes a thread for each CPU the process may run on but the
+    main thread's (1 to :data:`MASK_WRITER_MAX_THREADS`).  At most twice
+    as many files are in flight: past that, and before a second write to a
+    path still pending (the later view's file stays), the main thread
+    waits for the oldest writes under the span ``render.writer_wait``, as
+    it does for every write left on exit.  A failed write is raised by the
+    wait that meets it, the first in view order, and no write is submitted
+    after it; every write submitted has ended, and every thread, when the
+    ``with`` block is left.
+    """
+
+    def __init__(self):
+        cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+                else os.cpu_count() or 1)
+        self.threads = max(1, min(MASK_WRITER_MAX_THREADS, cpus - 1))
+        self._pool = ThreadPoolExecutor(self.threads, thread_name_prefix="mask-writer")
+        self._pending = collections.deque()  # (path, future), oldest first
+
+    def failed(self) -> bool:
+        """Whether a pending write has failed: submit no more."""
+        return any(f.done() and f.exception() is not None for _, f in self._pending)
+
+    def _blocked(self, path) -> bool:
+        return (len(self._pending) >= 2 * self.threads
+                or any(p == path for p, _ in self._pending))
+
+    def _wait(self, until):
+        with annotate("render.writer_wait"):
+            while until():
+                self._pending.popleft()[1].result()
+
+    def submit(self, path: Path, array: np.ndarray):
+        if self._blocked(path):
+            self._wait(lambda: self._blocked(path))
+        self._pending.append((path, self._pool.submit(write_image, path, array)))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            if self._pending:
+                self._wait(lambda: self._pending)
+        except Exception:
+            if exc_type is None:
+                raise
+        finally:
+            self._pool.shutdown()
 
 
 class TexturedMesh:
@@ -1454,6 +1518,10 @@ class TexturedMesh:
         files only): the float render (unlabelled NaN) against the raw
         image, resized bilinearly to the render where the sizes differ
         (:func:`~geograypher_tpu_torch.utils.visualization.save_composite`).
+
+        The files are encoded and written by :class:`_MaskWriter`'s host
+        threads while the next views render; the call returns once every
+        file is on disk, and raises the first failed write in view order.
         """
         if output_extension != ".npy" and not cast_to_uint8:
             raise ValueError(
@@ -1463,39 +1531,42 @@ class TexturedMesh:
         output_folder = Path(output_folder)
         renders = self._render_flat_device(cameras, render_image_scale, render_kwargs)
         overflowed = []
-        for i, (img, overflow) in enumerate(renders):
-            with annotate("render.overflow_read"):
-                dropped = int(overflow)
-            if dropped:
-                overflowed.append(i)
-                continue
-            fname = cameras.image_filenames[i]
-            rel = Path(fname.name if fname is not None else "render")
-            out_path = (output_folder / rel).with_suffix(output_extension)
-            ensure_containing_folder(out_path)
-            data = img[..., 0] if img.shape[-1] == 1 else img
-            if save_native_resolution and render_image_scale != 1.0:
-                sensor = cameras.sensors[cameras.sensor_IDs[i]]
-                rows = torch.as_tensor(nearest_indices(
-                    data.shape[0], sensor["image_height"]), device=self.device)
-                cols = torch.as_tensor(nearest_indices(
-                    data.shape[1], sensor["image_width"]), device=self.device)
-                data = data[rows[:, None], cols[None, :]]
-            with annotate("render.download"):
-                if output_extension == ".npy":
-                    mask = data.cpu().numpy()
-                else:
-                    mask = torch.where(torch.isfinite(data), data, 255.0)
-                    mask = mask.clamp(0, 255).to(torch.uint8)
-                    if mask.ndim == 3 and mask.shape[-1] in (3, 4):
-                        mask = mask[..., [2, 1, 0, 3][: mask.shape[-1]]]
-                    mask = mask.cpu().numpy()
-            write_image(out_path, mask)
-            if (make_composites and output_extension != ".npy"
-                    and fname is not None and Path(fname).exists()):
-                save_composite(data.cpu().numpy(), fname,
-                               out_path.with_name(out_path.stem + "_composite.png"),
-                               self.IDs_to_labels)
+        with _MaskWriter() as writer:
+            for i, (img, overflow) in enumerate(renders):
+                if writer.failed():
+                    break  # the exit raises it
+                with annotate("render.overflow_read"):
+                    dropped = int(overflow)
+                if dropped:
+                    overflowed.append(i)
+                    continue
+                fname = cameras.image_filenames[i]
+                rel = Path(fname.name if fname is not None else "render")
+                out_path = (output_folder / rel).with_suffix(output_extension)
+                ensure_containing_folder(out_path)
+                data = img[..., 0] if img.shape[-1] == 1 else img
+                if save_native_resolution and render_image_scale != 1.0:
+                    sensor = cameras.sensors[cameras.sensor_IDs[i]]
+                    rows = torch.as_tensor(nearest_indices(
+                        data.shape[0], sensor["image_height"]), device=self.device)
+                    cols = torch.as_tensor(nearest_indices(
+                        data.shape[1], sensor["image_width"]), device=self.device)
+                    data = data[rows[:, None], cols[None, :]]
+                with annotate("render.download"):
+                    if output_extension == ".npy":
+                        mask = data.cpu().numpy()
+                    else:
+                        mask = torch.where(torch.isfinite(data), data, 255.0)
+                        mask = mask.clamp(0, 255).to(torch.uint8)
+                        if mask.ndim == 3 and mask.shape[-1] in (3, 4):
+                            mask = mask[..., [2, 1, 0, 3][: mask.shape[-1]]]
+                        mask = mask.cpu().numpy()
+                writer.submit(out_path, mask)
+                if (make_composites and output_extension != ".npy"
+                        and fname is not None and Path(fname).exists()):
+                    save_composite(data.cpu().numpy(), fname,
+                                   out_path.with_name(out_path.stem + "_composite.png"),
+                                   self.IDs_to_labels)
         if overflowed:
             raise RuntimeError(
                 f"raster capacity overflow in views {overflowed}: their tile "

@@ -56,15 +56,18 @@ def encode_png(image: np.ndarray, level: int = PNG_ZLIB_LEVEL) -> bytes:
             "supported are uint8/uint16 (H, W) and uint8 (H, W, 3|4)"
         )
     h, w = img.shape[:2]
-    depth = 8 * img.dtype.itemsize
-    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">")))
-    rows = rows.view(np.uint8).reshape(h, -1)
-    raw = np.empty((h, rows.shape[1] + 1), np.uint8)
+    file_dtype = img.dtype.newbyteorder(">")  # uint8 keeps its dtype
+    depth = 8 * file_dtype.itemsize
+    # the filter byte and the rows in one buffer, filled by one copy (a
+    # byte swap for native uint16) that releases the GIL, and handed to
+    # zlib as it is: mask writers encode on several threads at once
+    raw = np.empty((h, 1 + img[0].size * file_dtype.itemsize), np.uint8)
     raw[:, 0] = 0  # filter type None
-    raw[:, 1:] = rows
+    rows = raw[:, 1:].view(file_dtype).reshape(img.shape)
+    np.copyto(rows, img, casting="equiv")
     header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, 0)
     return (PNG_SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IDAT", zlib.compress(raw, level))
             + _chunk(b"IEND", b""))
 
 

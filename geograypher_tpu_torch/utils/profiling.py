@@ -33,8 +33,10 @@ The spans the port opens on its hot paths:
   ``pipeline.sync`` (``sync_s``);
 * ``parallel/planner.py``: ``planner.plan`` around ``plan_aggregation``;
 * ``meshes/mesh.py`` ``save_renders``: ``render.view`` (a view's raster and
-  texture launches), ``render.overflow_read``, ``render.download``; and
-  ``utils/io.py`` ``write_image``: ``io.encode``, ``io.write``.
+  texture launches), ``render.overflow_read``, ``render.download``,
+  ``render.writer_wait`` (the wait for the mask writer's threads); and
+  ``utils/io.py`` ``write_image``: ``io.encode``, ``io.write`` (on the mask
+  writer's threads there).
 """
 
 from __future__ import annotations

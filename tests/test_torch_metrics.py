@@ -293,12 +293,14 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 # -- the port's spans -----------------------------------------------------------
 
 # the spans each path opens on its main thread; ``upload.wait`` blocks only
-# on a card's copy, and ``pipeline.load`` runs on the prefetch workers
+# on a card's copy, ``pipeline.load`` runs on the prefetch workers and the
+# mask writer's ``io.encode`` / ``io.write`` on its pool's threads
 AGG_SPANS = ("pipeline.prepare", "planner.plan", "pipeline.fetch_wait",
              "pipeline.stack", "pipeline.upload", "upload.stage",
              "pipeline.enqueue", "pipeline.sync")
-RENDER_SPANS = ("render.view", "render.overflow_read", "render.download",
-                "io.encode", "io.write")
+RENDER_SPANS = ("render.view", "render.overflow_read", "render.download")
+WRITER_WAIT = "render.writer_wait"
+WRITER_SPANS = ("io.encode", "io.write")
 N_VIEWS = 6
 
 
@@ -352,8 +354,9 @@ def test_spans_on_the_trace_nested_on_the_main_thread(tmp_path):
         aggregate_and_render(tmp_path)
     events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
     spans = spans_of(events)
-    assert set(AGG_SPANS + RENDER_SPANS) <= set(spans), sorted(spans)
-    main = {t for name in AGG_SPANS + RENDER_SPANS for t, _, _ in spans[name]}
+    main_spans = AGG_SPANS + RENDER_SPANS + (WRITER_WAIT,)
+    assert set(main_spans) <= set(spans), sorted(spans)
+    main = {t for name in main_spans for t, _, _ in spans[name]}
     assert main == {threading.get_native_id()}
     for name in ("pipeline.fetch_wait", "pipeline.upload", "pipeline.stack",
                  "upload.stage"):
@@ -361,6 +364,11 @@ def test_spans_on_the_trace_nested_on_the_main_thread(tmp_path):
     assert len(spans["pipeline.enqueue"]) == N_VIEWS
     for name in RENDER_SPANS:
         assert len(spans[name]) == N_VIEWS, name
+    # 6 masks never fill the writer's bound: the one wait is the last drain
+    assert len(spans[WRITER_WAIT]) == 1
+    assert spans[WRITER_WAIT][0][1] >= max(e for _, _, e in spans["render.download"])
+    for name in WRITER_SPANS:  # the pool's threads are not recorded here
+        assert not {t for t, _, _ in spans.get(name, [])} & main, name
     assert inside(spans["pipeline.stack"], spans["pipeline.fetch_wait"])
     assert inside(spans["upload.stage"], spans["pipeline.upload"])
 
@@ -379,6 +387,23 @@ def test_load_spans_on_the_prefetch_threads(tmp_path):
     loads = {t for t, _, _ in spans["pipeline.load"]}
     assert len(spans["pipeline.load"]) == N_VIEWS
     assert threading.get_native_id() not in loads and 1 <= len(loads) <= 2
+
+
+def test_writer_spans_on_the_pool_threads(tmp_path):
+    """A profiler that records every thread shows ``io.encode`` and
+    ``io.write`` on the mask writer's threads, one a mask, each inside no
+    span of the main thread."""
+    mesh, cams, _ = small_survey(tmp_path)
+    config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(experimental_config=config) as prof:
+        mesh.save_renders(cams, output_folder=tmp_path / "masks")
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = spans_of(json.loads((tmp_path / "trace.json").read_text())["traceEvents"])
+    for name in WRITER_SPANS:
+        writers = {t for t, _, _ in spans[name]}
+        assert len(spans[name]) == N_VIEWS, name
+        assert threading.get_native_id() not in writers, name
+    assert len(list((tmp_path / "masks").iterdir())) == N_VIEWS
 
 
 def test_no_span_opens_without_a_profiler(tmp_path, monkeypatch):

@@ -13,10 +13,18 @@ view's global ids to a compact local set (``unique`` and
 only the (face, class, count) triples and the seen faces come to the
 host, never the (F, n_local) table (1.2 GB a view at 999,698 faces and
 300 detections).  The host accumulates the CSR as the JAX package does.
+
+Each stage of :func:`aggregate_index_predictions` is a span
+(``utils/profiling.py``: a ``perf_counter`` total, and a
+``record_function`` only while a profiler records; no span waits for the
+device), and each call logs one INFO record of this module's logger whose
+``sparse_stats`` dict holds the call's totals (see the function).
+:func:`sparse_argmax` opens ``sparse.argmax``.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 import typing
 
@@ -28,6 +36,13 @@ from geograypher_tpu_torch.cameras.core import CameraSet
 from geograypher_tpu_torch.meshes.mesh import TexturedMesh
 from geograypher_tpu_torch.ops.face_counts import face_class_counts
 from geograypher_tpu_torch.utils.device import PinnedUpload
+from geograypher_tpu_torch.utils.profiling import _StageTimer, annotate
+
+logger = logging.getLogger(__name__)
+
+#: the spans of :func:`aggregate_index_predictions`, in the order of a view
+SPANS = ("segment", "upload", "remap", "pix2face", "table", "download", "host",
+         "csr")
 
 
 def local_class_image(img: torch.Tensor):
@@ -65,15 +80,32 @@ def aggregate_index_predictions(
             ``nonzero_s``, ``download_s``, ``host_s``), each stage ended
             by a synchronise.
 
+    One INFO log record of this module's logger carries the call's totals
+    as its ``sparse_stats`` dict: ``seconds`` (the whole call), ``views``
+    (the cameras handed in), ``local_classes`` (the views' ``n_local``
+    added up), ``table_bytes`` (the (F, n_local) int32 tables' bytes added
+    up), ``triples`` (the (face, class, count) triples downloaded), and
+    for each span ``sparse.<name>`` its seconds as ``<name>_s``:
+    ``segment`` (the segmentor's image on the host), ``upload``,
+    ``remap`` (the local ids: ``unique`` waits for the card), ``pix2face``
+    (the raster chain and its overflow read), ``table`` (the counts launch,
+    ``nonzero`` over the table and the seen faces, each ``nonzero`` a wait
+    for the card), ``download``, ``host`` (the per-view appends) and
+    ``csr`` (the final CSR).  The spans never synchronise; with ``stats``
+    the synchronises above fall inside them.
+
     Returns:
         counts: (n_faces, n_classes) float32 CSR of pixel counts
         faces_seen: (n_faces,) number of views seeing each face
     """
+    t_call = time.perf_counter()
     n_faces = mesh.n_faces
     device = mesh.device
     rows, cols, vals = [], [], []
     faces_seen = np.zeros(n_faces)
     upload = PinnedUpload(device)
+    timer = _StageTimer()
+    totals = dict(local_classes=0, table_bytes=0, triples=0)
 
     def mark():
         if stats is not None and device.type == "cuda":
@@ -82,22 +114,27 @@ def aggregate_index_predictions(
 
     for i in range(len(cameras)):
         t_seg = time.perf_counter()
-        img = cameras.get_image_by_index(i, aggregate_img_scale)
-        img = np.asarray(img, dtype=np.float64)
-        if img.ndim == 3:
-            img = img[..., 0]
-        t0 = mark()
-        img_dev = upload(img)
-        t1 = mark()
-        local, local_classes = local_class_image(img_dev)
-        n_local = int(local_classes.numel())
-        if check_null_image and n_local == 0:
+        with timer("sparse.segment"):
+            img = cameras.get_image_by_index(i, aggregate_img_scale)
+            img = np.asarray(img, dtype=np.float64)
+            if img.ndim == 3:
+                img = img[..., 0]
+            t0 = mark()
+        with timer("sparse.upload"):
+            img_dev = upload(img)
+            t1 = mark()
+        with timer("sparse.remap"):
+            local, local_classes = local_class_image(img_dev)
+            n_local = int(local_classes.numel())
+            skip = check_null_image and n_local == 0
+            t2 = None if skip else mark()
+        if skip:
             continue
-        t2 = mark()
-        p2f = mesh._pix2face_device(
-            cameras, i, render_img_scale=aggregate_img_scale, **pix2face_kwargs
-        )
-        t3 = mark()
+        with timer("sparse.pix2face"):
+            p2f = mesh._pix2face_device(
+                cameras, i, render_img_scale=aggregate_img_scale, **pix2face_kwargs
+            )
+            t3 = mark()
         n_local = max(n_local, 1)
         if n_faces * n_local + 1 >= 2**31:
             raise ValueError(
@@ -105,38 +142,50 @@ def aggregate_index_predictions(
                 "int32 flattened segment index — aggregate class subsets in "
                 "chunks (e.g. via meshes/sparse.py's per-view local remap)"
             )
-        counts = face_class_counts(p2f.to(torch.int32).contiguous(), local,
-                                   n_faces, n_local)
-        t4 = mark()
-        f_idx, c_idx = torch.nonzero(counts, as_tuple=True)
-        v = counts[f_idx, c_idx]
-        del counts
-        seen = torch.zeros(n_faces, dtype=torch.bool, device=device)
-        seen[p2f[p2f >= 0].long()] = True
-        seen = torch.nonzero(seen, as_tuple=True)[0]
-        t5 = mark()
-        f_idx, c_idx, v, seen, local_classes = (
-            t.cpu().numpy() for t in (f_idx, c_idx, v, seen, local_classes))
-        t6 = mark()
-        rows.append(f_idx)
-        cols.append(local_classes[c_idx])
-        vals.append(v.astype(np.float32))
-        faces_seen[seen] += 1
+        with timer("sparse.table"):
+            counts = face_class_counts(p2f.to(torch.int32).contiguous(), local,
+                                       n_faces, n_local)
+            t4 = mark()
+            f_idx, c_idx = torch.nonzero(counts, as_tuple=True)
+            v = counts[f_idx, c_idx]
+            del counts
+            seen = torch.zeros(n_faces, dtype=torch.bool, device=device)
+            seen[p2f[p2f >= 0].long()] = True
+            seen = torch.nonzero(seen, as_tuple=True)[0]
+            t5 = mark()
+        with timer("sparse.download"):
+            f_idx, c_idx, v, seen, local_classes = (
+                t.cpu().numpy() for t in (f_idx, c_idx, v, seen, local_classes))
+            t6 = mark()
+        with timer("sparse.host"):
+            rows.append(f_idx)
+            cols.append(local_classes[c_idx])
+            vals.append(v.astype(np.float32))
+            faces_seen[seen] += 1
+        totals["local_classes"] += n_local
+        totals["table_bytes"] += n_faces * n_local * 4
+        totals["triples"] += len(f_idx)
         if stats is not None:
             stats.append(dict(segment_s=t0 - t_seg, upload_s=t1 - t0, remap_s=t2 - t1,
                               pix2face_s=t3 - t2, counts_s=t4 - t3,
                               nonzero_s=t5 - t4, download_s=t6 - t5,
                               host_s=time.perf_counter() - t6))
-    if rows:
-        counts = scipy.sparse.csr_array(
-            (
-                np.concatenate(vals),
-                (np.concatenate(rows), np.concatenate(cols)),
-            ),
-            shape=(n_faces, n_classes),
-        )
-    else:
-        counts = scipy.sparse.csr_array((n_faces, n_classes))
+    with timer("sparse.csr"):
+        if rows:
+            counts = scipy.sparse.csr_array(
+                (
+                    np.concatenate(vals),
+                    (np.concatenate(rows), np.concatenate(cols)),
+                ),
+                shape=(n_faces, n_classes),
+            )
+        else:
+            counts = scipy.sparse.csr_array((n_faces, n_classes))
+    record = dict(seconds=time.perf_counter() - t_call, views=len(cameras), **totals,
+                  **{f"{name}_s": timer.seconds(f"sparse.{name}") for name in SPANS})
+    logger.info("sparse: %d views, %d triples in %.3f s", record["views"],
+                record["triples"], record["seconds"],
+                extra={"sparse_stats": record})
     return counts, faces_seen
 
 
@@ -169,20 +218,22 @@ def sparse_argmax(counts: scipy.sparse.csr_array) -> np.ndarray:
 
     Vectorized (segmented reduceat over the CSR structure); ties break
     toward the first stored (lowest) class index, like np.argmax.
+    Span ``sparse.argmax``.
     """
-    counts = counts.tocsr()
-    out = np.full(counts.shape[0], np.nan)
-    row_nnz = np.diff(counts.indptr)
-    rows = np.nonzero(row_nnz > 0)[0]
-    if rows.size == 0:
+    with annotate("sparse.argmax"):
+        counts = counts.tocsr()
+        out = np.full(counts.shape[0], np.nan)
+        row_nnz = np.diff(counts.indptr)
+        rows = np.nonzero(row_nnz > 0)[0]
+        if rows.size == 0:
+            return out
+        starts = counts.indptr[rows]
+        row_max = np.maximum.reduceat(counts.data, starts)
+        # first position per row whose value equals the row max
+        pos = np.arange(counts.data.size)
+        pos = np.where(
+            counts.data == np.repeat(row_max, row_nnz[rows]), pos, counts.data.size
+        )
+        first = np.minimum.reduceat(pos, starts)
+        out[rows] = counts.indices[first]
         return out
-    starts = counts.indptr[rows]
-    row_max = np.maximum.reduceat(counts.data, starts)
-    # first position per row whose value equals the row max
-    pos = np.arange(counts.data.size)
-    pos = np.where(
-        counts.data == np.repeat(row_max, row_nnz[rows]), pos, counts.data.size
-    )
-    first = np.minimum.reduceat(pos, starts)
-    out[rows] = counts.indices[first]
-    return out

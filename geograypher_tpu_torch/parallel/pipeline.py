@@ -8,13 +8,19 @@ overlaps:
 
 * **Prefetch.**  A pool of ``prefetch_workers`` threads loads each view's
   class image through the provider (by default the host argmax of the
-  segmentor's image), clips it and casts it to int8 (int32 past 127
-  classes), ahead of the device.  Workers run host numpy only.
-* **Upload.**  The main thread stages each step's labels, one stack a
-  device, through that device's two-slot pinned upload
-  (:class:`~geograypher_tpu_torch.utils.device.PinnedUpload`): the copy
-  runs on a copy stream while the device computes the step before, and
-  the compute stream waits for it on the device.
+  segmentor's image) ahead of the device, the step being waited on and
+  the two after it, and writes it clipped and cast to int8 (int32 past
+  127 classes) in one pass straight into the view's row of a step slot
+  (:func:`write_label_row`).  Workers run host numpy and, on a card,
+  wait on copy events; they launch nothing.
+* **Upload.**  Each device has a ring of ``LOOKAHEAD_STEPS + 2`` step
+  slots (:class:`_SlotRing`), page-locked on a card.  A worker first waits
+  on the event of the copy that last read its slot, captured when the
+  view was handed to the pool; the ring is deep enough that the copy has
+  long left.  The main thread makes no stack and no staging copy: it
+  waits for a step's rows and issues one copy of the slot on a copy
+  stream while the device computes the step before, and the compute
+  stream waits for it on the device.
 * **Compute.**  Each device holds the mesh's (9, F) triangle rows and its
   own accumulators.  Every view runs the fused chain
   (:func:`~geograypher_tpu_torch.ops.rasterize.fused_view_class_counts`:
@@ -42,6 +48,7 @@ view is 8.3 MB over PCIe here, and the numbers are the same either way).
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import logging
 import time
@@ -56,13 +63,13 @@ from geograypher_tpu_torch.parallel.sharding import (
     make_view_mesh,
     sum_over_devices,
 )
-from geograypher_tpu_torch.utils.device import PinnedUpload
 from geograypher_tpu_torch.utils.profiling import _StageTimer
 
 logger = logging.getLogger(__name__)
 
 LABEL_TRANSPORTS = ("auto", "dense", "rle")
 MAX_RETRIES = 2  # re-census rounds before an overflow raises
+LOOKAHEAD_STEPS = 3  # steps loading at once: the one waited on and two ahead
 
 
 def _deal(runs, n_dev: int, group: int) -> list:
@@ -79,13 +86,80 @@ def _deal(runs, n_dev: int, group: int) -> list:
     return steps
 
 
+def write_label_row(row: np.ndarray, labels: np.ndarray, n_classes: int,
+                    minus_one: np.ndarray) -> None:
+    """``row[...] = as_label_dtype(np.clip(labels, -1, None), n_classes)``:
+    ids below -1 become -1, and a narrowing cast first maps every id
+    outside ``[0, n_classes)`` to -1.  Labels already in the row's dtype
+    take one vectorised pass, ``max(labels, minus_one)`` with ``minus_one``
+    -1s of the row's shape and dtype: numpy runs that loop with the
+    interpreter lock released, where it holds the lock against a broadcast
+    row of -1s and runs a scalar -1 several times slower."""
+    if labels.dtype == row.dtype:
+        np.maximum(labels, minus_one, out=row)
+    else:
+        row[...] = _planner.as_label_dtype(np.clip(labels, -1, None), n_classes)
+
+
+class _SlotRing:
+    """The step slots of one device, used in turn: ``depth`` buffers of
+    ``group`` label images, page-locked on a card.  The prefetch workers
+    write each view's labels into its row of a slot (:meth:`take`), and
+    :meth:`upload` sends a slot's rows to the device in one copy, issued on
+    one copy stream of the device.  The consumer waits on the device, not
+    on the host: the caller's current stream waits on the copy's event,
+    and the returned tensor is recorded on that stream, so the caching
+    allocator does not hand its memory out before the consumer's work on
+    it has run.  Each slot keeps the event of the copy that last read it,
+    which a worker waits on before it writes there.  On a CPU device a
+    slot's rows are the labels, which the chain consumes before it returns:
+    no copy and no event."""
+
+    def __init__(self, device, depth: int, group: int, h: int, w: int, dtype):
+        self.device = torch.device(device)
+        self.slots = torch.empty((depth, group, h, w),
+                                 dtype=getattr(torch, np.dtype(dtype).name),
+                                 pin_memory=self.device.type == "cuda")
+        self.read: list = [None] * depth  # event of the copy out of each slot
+        self._next = 0
+        self._stream: typing.Optional[torch.cuda.Stream] = None
+
+    def take(self):
+        """The next slot: (its index, its rows as numpy, the event of the
+        copy that last read it or None)."""
+        k = self._next
+        self._next = (k + 1) % len(self.read)
+        return k, self.slots[k].numpy(), self.read[k]
+
+    def upload(self, k: int, n: int) -> torch.Tensor:
+        """The first ``n`` rows of slot ``k`` on the device."""
+        host = self.slots[k, :n]
+        if self.device.type != "cuda":
+            return host
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            # allocated on the copy stream: a block the consumer freed with
+            # work still queued is not reused before that work has run
+            on_device = torch.empty(host.shape, dtype=host.dtype,
+                                    device=self.device)
+            on_device.copy_(host, non_blocking=True)
+        read = torch.cuda.Event()
+        read.record(self._stream)
+        consumer.wait_event(read)
+        on_device.record_stream(consumer)
+        self.read[k] = read
+        return on_device
+
+
 class _DeviceRunner:
     """The per-device state of one call: triangle rows, packed view
-    parameters, the two-slot upload and the weighted accumulators; and
+    parameters, the rings of step slots and the weighted accumulators; and
     the loop that feeds steps of views through them."""
 
     def __init__(self, device_mesh, tri_soa, params, n_classes, image_h,
-                 image_w, use_dist, load, prefetch_workers, timer):
+                 image_w, use_dist, load, prefetch_workers, group, timer):
         self.mesh = device_mesh
         self.soa = {dev: tri_soa.to(dev) for dev in set(device_mesh)}
         p = torch.as_tensor(np.asarray(params, np.float32))
@@ -95,42 +169,55 @@ class _DeviceRunner:
                                   device=dev),
                       torch.zeros((f_pad,), dtype=torch.float32, device=dev))
                      for dev in device_mesh]
-        self.uploads = [PinnedUpload(dev) for dev in device_mesh]
+        self.rings = [_SlotRing(dev, LOOKAHEAD_STEPS + 2, group, image_h,
+                                image_w, _planner.label_dtype(n_classes))
+                      for dev in device_mesh]
         self.n_classes, self.h, self.w = n_classes, image_h, image_w
         self.use_dist = use_dist
-        self.load = load
+        self.load = load  # load(view, row): the view's labels into its row
         self.workers = max(1, int(prefetch_workers))
+        self.direct: set = set()  # views a worker wrote into a slot's row
         self.timer = timer  # the call's spans and host times
 
+    def _fill(self, view: int, row: np.ndarray, read) -> None:
+        """A worker: wait for the slot's last copy to leave, then load."""
+        if read is not None:
+            with self.timer("pipeline.slot_wait"):
+                read.synchronize()
+        self.load(view, row)
+
+    def _submit(self, pool, shards) -> list:
+        """A step's views to the workers, each with its row of the next slot
+        of its device's ring: ``[(device, views, slot, futures)]``."""
+        out = []
+        for d, views in enumerate(shards):
+            if views:
+                k, rows, read = self.rings[d].take()
+                out.append((d, views, k, [pool.submit(self._fill, v, rows[i], read)
+                                          for i, v in enumerate(views)]))
+        return out
+
     def run(self, steps) -> list:
-        """Load, upload and launch every view of ``steps``, prefetching two
-        steps ahead; returns ``[(view, overflow on its device)]``."""
-        order = [v for _, shards in steps for shard in shards for v in shard]
-        lookahead = 3 * max((sum(len(s) for s in shards) for _, shards in steps),
-                            default=1)
+        """Load, upload and launch every view of ``steps``, the workers
+        loading ``LOOKAHEAD_STEPS`` steps at a time; returns ``[(view,
+        overflow on its device)]``."""
         overs = []
         pool = concurrent.futures.ThreadPoolExecutor(self.workers)
         try:
-            futures: dict = {}
-            pos = 0
-            for config, shards in steps:
-                for j in range(len(futures) + pos, min(pos + lookahead, len(order))):
-                    futures[j] = pool.submit(self.load, order[j])
-                for d, views in enumerate(shards):
-                    if not views:
-                        continue
+            loading = collections.deque()
+            for s, (config, _) in enumerate(steps):
+                while len(loading) < LOOKAHEAD_STEPS and s + len(loading) < len(steps):
+                    loading.append(self._submit(pool, steps[s + len(loading)][1]))
+                for d, views, k, futures in loading.popleft():
                     with self.timer("pipeline.fetch_wait"):
-                        loaded = [futures.pop(pos + j).result()
-                                  for j in range(len(views))]
-                        with self.timer("pipeline.stack"):
-                            stack = np.stack(loaded)
-                        del loaded  # the workers' arrays go before the upload
-                    pos += len(views)
+                        for future in futures:
+                            future.result()
+                    self.direct.update(views)
                     with self.timer("pipeline.upload"):
-                        labels = self.uploads[d](stack)
-                    for k, view in enumerate(views):
+                        labels = self.rings[d].upload(k, len(views))
+                    for j, view in enumerate(views):
                         overs.append((view, self._view(d, config, view,
-                                                       labels[k])))
+                                                       labels[j])))
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
         return overs
@@ -183,8 +270,8 @@ def aggregate_class_images_distributed(
             sensor's distorted pixel space whenever any sensor carries
             distortion or a principal-point offset; False disables.
         views_per_step: views a device takes per step; a step's labels go
-            up to each device in one pinned copy.  Results do not depend on
-            it.
+            up to each device in one copy of a pinned slot.  Results do not
+            depend on it.
         integrity_check: accepted for the JAX package's signature; its
             guard against Mosaic output corruption has no counterpart.
         auto_size_fold: plan the survey (census, cap buckets; the plan is
@@ -205,33 +292,36 @@ def aggregate_class_images_distributed(
 
     One INFO log record of this module's logger carries the run's counts
     and host times as its ``pipeline_stats`` dict: ``views``, ``devices``,
-    ``views_per_step``, ``prefetch_workers``, ``retried_views`` and
-    ``retry_rounds``, and these seconds, each (but ``seconds``) the time
-    of the span in brackets, which a running profiler records too
-    (``utils/profiling.py``):
+    ``views_per_step``, ``prefetch_workers``, ``retried_views``,
+    ``retry_rounds`` and ``direct_views`` (the views whose labels a worker
+    wrote straight into a row of a step slot: every view), and these
+    seconds, each (but ``seconds``) the time of the span in brackets, which
+    a running profiler records too (``utils/profiling.py``):
 
     * ``seconds``: the whole call;
     * ``prepare_s`` (``pipeline.prepare``): from the call's start up to the
       runner: the rows on the devices, the camera batch, the packed view
-      rows, the provider, the accumulators;
+      rows, the provider, the accumulators, the slot rings;
     * ``plan_s`` (``planner.plan``): the census and sizing of a plan not
       found in the mesh's cache, its ``plan_seconds`` (the retry rounds'
       re-census is not in it);
     * ``load_s`` (``pipeline.load``): the prefetch workers inside the
-      provider, the clip and the cast, added over the workers (they
-      overlap the main thread);
-    * ``fetch_wait_s`` (``pipeline.fetch_wait``): the main thread taking a
-      step's class images from the workers and stacking them; ``stack_s``
-      (``pipeline.stack``): the stack alone;
-    * ``upload_s`` (``pipeline.upload``): the main thread inside the
-      two-slot pinned upload; ``upload_wait_s`` (``upload.wait``): inside
-      it, blocked on a slot's last copy; ``stage_s`` (``upload.stage``):
-      inside it, the copy into the pinned buffer;
+      provider and the row write (the clip and the cast), added over the
+      workers (they overlap the main thread); ``slot_wait_s``
+      (``pipeline.slot_wait``): the workers blocked on a slot's last copy
+      before they load, added over the workers;
+    * ``fetch_wait_s`` (``pipeline.fetch_wait``): the main thread waiting
+      for the workers to fill a step's rows;
+    * ``upload_s`` (``pipeline.upload``): the main thread issuing a slot's
+      copy to its device;
     * ``enqueue_s`` (``pipeline.enqueue``): the main thread launching the
       views' chains and their gated adds;
     * ``sync_s`` (``pipeline.sync``): the fetches of the overflow flags,
       every retry round's included, and the sum and download of the
-      accumulators.
+      accumulators;
+    * ``stack_s``, ``stage_s`` and ``upload_wait_s``: 0.0, the main
+      thread's time stacking the labels, copying them into a pinned buffer
+      and blocking on that buffer, none of which it does.
 
     ``prepare_s``, ``plan_s``, ``fetch_wait_s``, ``upload_s``, ``enqueue_s``
     and ``sync_s`` are disjoint parts of ``seconds``.
@@ -263,16 +353,18 @@ def aggregate_class_images_distributed(
         n = len(cameras)
         params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
 
-        def load(view: int) -> np.ndarray:
+        minus_one = np.full((h, w), -1, _planner.label_dtype(n_classes))
+
+        def load(view: int, row: np.ndarray) -> None:
             with timer("pipeline.load"):
-                labels = np.clip(np.asarray(class_image_provider(view)), -1, None)
+                labels = np.asarray(class_image_provider(view))
                 if labels.shape != (h, w):
                     raise ValueError(f"view {view}: class image of {labels.shape} "
                                      f"for images of {(h, w)}")
-                return _planner.as_label_dtype(labels, n_classes)
+                write_label_row(row, labels, n_classes, minus_one)
 
         runner = _DeviceRunner(device_mesh, tri_soa, params, n_classes, h, w,
-                               use_dist, load, prefetch_workers, timer)
+                               use_dist, load, prefetch_workers, group, timer)
     plan_s = 0.0
     if n and auto_size_fold:
         key = ("plan", config, use_dist, w, h, cameras.get_camera_hash())
@@ -322,10 +414,12 @@ def aggregate_class_images_distributed(
         views=n, devices=[str(d) for d in device_mesh], views_per_step=group,
         prefetch_workers=runner.workers, seconds=time.perf_counter() - t_call,
         plan_s=plan_s, retried_views=retried, retry_rounds=attempt,
-        upload_wait_s=sum(u.wait_s for u in runner.uploads),
-        stage_s=sum(u.stage_s for u in runner.uploads),
+        direct_views=len(runner.direct),
+        # the workers write each view into its slot's row: the main thread
+        # makes no stack, no staging copy and never blocks on a slot
+        stack_s=0.0, stage_s=0.0, upload_wait_s=0.0,
         **{f"{key}_s": timer.seconds(f"pipeline.{key}") for key in (
-            "prepare", "load", "fetch_wait", "stack", "upload", "enqueue",
+            "prepare", "load", "slot_wait", "fetch_wait", "upload", "enqueue",
             "sync")},
     )
     logger.info("pipeline: %d views on %d devices in %.3f s, %d re-run",

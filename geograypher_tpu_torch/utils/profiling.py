@@ -24,14 +24,15 @@ The spans the port opens on its hot paths:
 
 * ``parallel/pipeline.py`` ``aggregate_class_images_distributed``, one
   timer a call, each span the ``pipeline_stats`` key in brackets:
-  ``pipeline.prepare`` (``prepare_s``), ``pipeline.load`` on the prefetch
-  workers' threads (``load_s``; on a trace only where the profiler records
-  every thread), ``pipeline.fetch_wait`` (``fetch_wait_s``)
-  around ``pipeline.stack`` (``stack_s``), ``pipeline.upload``
-  (``upload_s``) around the upload's ``upload.wait`` (``upload_wait_s``) and
-  ``upload.stage`` (``stage_s``), ``pipeline.enqueue`` (``enqueue_s``) and
+  ``pipeline.prepare`` (``prepare_s``), ``pipeline.load`` and
+  ``pipeline.slot_wait`` on the prefetch workers' threads (``load_s``,
+  ``slot_wait_s``; on a trace only where the profiler records every
+  thread), ``pipeline.fetch_wait`` (``fetch_wait_s``), ``pipeline.upload``
+  (``upload_s``), ``pipeline.enqueue`` (``enqueue_s``) and
   ``pipeline.sync`` (``sync_s``);
 * ``parallel/planner.py``: ``planner.plan`` around ``plan_aggregation``;
+* ``utils/device.py`` ``PinnedUpload``: ``upload.wait`` and ``upload.stage``
+  inside its callers' spans (``meshes/sparse.py``'s among them);
 * ``meshes/mesh.py`` ``save_renders``: ``render.view`` (a view's raster and
   texture launches), ``render.overflow_read``, ``render.download``,
   ``render.writer_wait`` (the wait for the mask writer's threads); and

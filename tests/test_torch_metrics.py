@@ -292,12 +292,12 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
 
 # -- the port's spans -----------------------------------------------------------
 
-# the spans each path opens on its main thread; ``upload.wait`` blocks only
-# on a card's copy, ``pipeline.load`` runs on the prefetch workers and the
-# mask writer's ``io.encode`` / ``io.write`` on its pool's threads
+# the spans each path opens on its main thread; ``pipeline.load`` and
+# ``pipeline.slot_wait`` (only where a card's copy read the slot) run on the
+# prefetch workers and the mask writer's ``io.encode`` / ``io.write`` on its
+# pool's threads
 AGG_SPANS = ("pipeline.prepare", "planner.plan", "pipeline.fetch_wait",
-             "pipeline.stack", "pipeline.upload", "upload.stage",
-             "pipeline.enqueue", "pipeline.sync")
+             "pipeline.upload", "pipeline.enqueue", "pipeline.sync")
 RENDER_SPANS = ("render.view", "render.overflow_read", "render.download")
 WRITER_WAIT = "render.writer_wait"
 WRITER_SPANS = ("io.encode", "io.write")
@@ -358,8 +358,7 @@ def test_spans_on_the_trace_nested_on_the_main_thread(tmp_path):
     assert set(main_spans) <= set(spans), sorted(spans)
     main = {t for name in main_spans for t, _, _ in spans[name]}
     assert main == {threading.get_native_id()}
-    for name in ("pipeline.fetch_wait", "pipeline.upload", "pipeline.stack",
-                 "upload.stage"):
+    for name in ("pipeline.fetch_wait", "pipeline.upload"):
         assert len(spans[name]) == 2, name  # a step of 4 views and one of 2
     assert len(spans["pipeline.enqueue"]) == N_VIEWS
     for name in RENDER_SPANS:
@@ -369,8 +368,8 @@ def test_spans_on_the_trace_nested_on_the_main_thread(tmp_path):
     assert spans[WRITER_WAIT][0][1] >= max(e for _, _, e in spans["render.download"])
     for name in WRITER_SPANS:  # the pool's threads are not recorded here
         assert not {t for t, _, _ in spans.get(name, [])} & main, name
-    assert inside(spans["pipeline.stack"], spans["pipeline.fetch_wait"])
-    assert inside(spans["upload.stage"], spans["pipeline.upload"])
+    # the workers write the labels into the slots: no stack, no staging copy
+    assert not {"pipeline.stack", "upload.stage", "upload.wait"} & set(spans)
 
 
 def test_load_spans_on_the_prefetch_threads(tmp_path):

@@ -13,6 +13,7 @@ import logging
 import re
 import sys
 import threading
+import time
 from pathlib import Path
 
 import jax
@@ -224,15 +225,16 @@ def run_logged(caplog, **kwargs):
 
 # the record's disjoint parts of ``seconds``, and its times nested in them
 DISJOINT = ("prepare_s", "plan_s", "fetch_wait_s", "upload_s", "enqueue_s", "sync_s")
-INNER = ("load_s", "stack_s", "stage_s", "upload_wait_s")
+INNER = ("load_s", "slot_wait_s", "stack_s", "stage_s", "upload_wait_s")
 
 
 @pytest.mark.parametrize("caps", [None, (16, 16, 16, 16)], ids=["planned", "retried"])
 def test_pipeline_stats_parts_nest_and_add_up(pinhole, caplog, caps):
-    """Every host time of the record is there and non-negative, the inner
-    times lie inside theirs, and the disjoint parts add to no more than the
-    call; a planned call on a fresh mesh plans, a call whose views all
-    overflow re-runs them."""
+    """Every host time of the record is there and non-negative, and the
+    disjoint parts add to no more than the call; the workers write every
+    view into its row, so the main thread's stack, staging copy and slot
+    wait read 0; a planned call on a fresh mesh plans, a call whose views
+    all overflow re-runs them."""
     tmesh, tseg, *_ = pinhole
     mesh = TexturedMesh((tmesh.verts, tmesh.faces),
                         raster_config=tmesh.raster_config, device="cpu")
@@ -242,14 +244,150 @@ def test_pipeline_stats_parts_nest_and_add_up(pinhole, caplog, caps):
     _, stats, _ = run_logged(caplog, mesh=mesh, cameras=tseg, n_classes=N_CLASSES,
                              device_mesh=["cpu", "cpu"], **kwargs)
     assert all(stats[k] >= 0 for k in DISJOINT + INNER + ("seconds",))
-    # a CPU upload never waits; only a plan not in the mesh's cache is timed
-    assert all(stats[k] > 0 for k in DISJOINT + INNER
-               if k not in ("plan_s", "upload_wait_s"))
+    # only a plan not in the mesh's cache is timed; a CPU slot has no copy
+    # for a worker to wait on
+    assert all(stats[k] > 0 for k in DISJOINT + ("load_s",) if k != "plan_s")
+    assert stats["stack_s"] == stats["stage_s"] == stats["upload_wait_s"] == 0.0
+    assert stats["slot_wait_s"] == 0.0
+    assert stats["direct_views"] == stats["views"] == len(tseg)
     assert (stats["plan_s"] > 0) == (caps is None)
     assert stats["retried_views"] == (0 if caps is None else len(tseg))
-    assert stats["stack_s"] <= stats["fetch_wait_s"]
-    assert stats["stage_s"] + stats["upload_wait_s"] <= stats["upload_s"]
     assert sum(stats[k] for k in DISJOINT) <= stats["seconds"]
+
+
+def raw_labels(dtype, n_classes, n_views, seed=3):
+    """Seeded (n_views, 80, 80) class images of ``dtype`` with ids below -1
+    and at or past ``n_classes`` beside every class."""
+    info = np.iinfo(dtype)
+    lo, hi = max(info.min, -300), min(info.max, n_classes + 300)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(-1, n_classes, (n_views, 80, 80))
+    wild = rng.random(labels.shape) < 0.2
+    labels[wild] = rng.integers(lo, hi, int(wild.sum()))
+    return labels.astype(dtype)
+
+
+def as_uploaded_before(monkeypatch):
+    """The labels as the pipeline uploaded them before its workers wrote
+    into pinned rows: ``as_label_dtype(np.clip(...))`` as written, a stack
+    of a step's images, the two-slot upload."""
+    def rule(row, labels, n_classes, minus_one):
+        row[...] = tplanner.as_label_dtype(np.clip(labels, -1, None), n_classes)
+
+    uploads = {}
+
+    def upload(ring, k, n):
+        up = uploads.setdefault(id(ring), PinnedUpload(ring.device))
+        return up(np.stack(list(ring.slots[k, :n].numpy())))
+
+    monkeypatch.setattr(tpipeline, "write_label_row", rule)
+    monkeypatch.setattr(tpipeline._SlotRing, "upload", upload)
+
+
+@pytest.mark.parametrize("dtype,n_classes,n_dev,views_per_step,caps", [
+    (np.int8, N_CLASSES, 1, 5, None),
+    (np.int64, N_CLASSES, 1, 5, None),
+    (np.int32, 200, 1, 5, None),
+    (np.int8, N_CLASSES, 1, 2, None),
+    (np.int16, N_CLASSES, 2, 4, None),
+    (np.int8, N_CLASSES, 1, 4, (16, 16, 16, 16)),
+], ids=["int8", "int64", "int32_rows", "short_last_step", "two_devices", "retried"])
+def test_rows_written_by_the_workers_equal_the_old_upload(
+        pinhole, monkeypatch, dtype, n_classes, n_dev, views_per_step, caps):
+    """The workers' row writes give the bits of labels clipped, cast,
+    stacked and staged as before: int8 images (ids below -1 clipped, ids
+    past the classes kept), int64 and int16 ones narrowed (ids out of range
+    to -1), int32 rows past 127 classes, a short last step, two devices,
+    and a retry round whose views all overflow."""
+    tmesh, tseg, *_ = pinhole
+    labels = raw_labels(dtype, n_classes, len(tseg))
+    kwargs = dict(class_image_provider=lambda i: labels[i],
+                  device_mesh=["cpu"] * n_dev, views_per_step=views_per_step)
+    if caps is not None:
+        kwargs.update(auto_size_fold=False,
+                      config=dataclasses.replace(tmesh.raster_config, caps=caps))
+    fracs, views = tpipeline.aggregate_class_images_distributed(
+        tmesh, tseg, n_classes, **kwargs)
+    with monkeypatch.context() as m:
+        as_uploaded_before(m)
+        want_fracs, want_views = tpipeline.aggregate_class_images_distributed(
+            tmesh, tseg, n_classes, **kwargs)
+    assert views.max() > 0
+    assert np.array_equal(fracs, want_fracs) and np.array_equal(views, want_views)
+    row = np.empty((80, 80), tplanner.label_dtype(n_classes))
+    minus_one = np.full_like(row, -1)
+    for image in labels:  # the rows themselves, where negative ids count alike
+        tpipeline.write_label_row(row, image, n_classes, minus_one)
+        assert np.array_equal(
+            row, tplanner.as_label_dtype(np.clip(image, -1, None), n_classes))
+
+
+def test_workers_wait_for_a_slots_last_copy(monkeypatch, caplog):
+    """Stub copy events that complete only when a worker waits on one: no
+    worker writes into a slot before the copy that last read it has
+    completed; each ring holds ``LOOKAHEAD_STEPS + 2`` slots, at most
+    ``LOOKAHEAD_STEPS`` of them taken and not yet uploaded; 16 one-view
+    steps reuse every slot, and the result is the run's without stubs."""
+    rings, early = [], []
+
+    class StubEvent:
+        done = False
+
+        def synchronize(self):
+            time.sleep(0.002)
+            self.done = True
+
+    class Ring(tpipeline._SlotRing):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.taken = self.most_taken = 0
+            rings.append(self)
+
+        def take(self):
+            self.taken += 1
+            self.most_taken = max(self.most_taken, self.taken)
+            return super().take()
+
+        def upload(self, k, n):
+            self.taken -= 1
+            self.read[k] = StubEvent()
+            return super().upload(k, n)
+
+    write = tpipeline.write_label_row
+
+    def checked(row, labels, n_classes, minus_one):
+        for ring in rings:
+            for k, read in enumerate(ring.read):
+                if np.shares_memory(row, ring.slots[k].numpy()) and not (
+                        read is None or read.done):
+                    early.append(k)
+        write(row, labels, n_classes, minus_one)
+
+    n = 16
+    verts, faces = make_grid_mesh(n=13, size=4.0)
+    mesh = TexturedMesh((verts, faces), raster_config=tr.RasterConfig(),
+                        device="cpu")
+    c2ws = []
+    for k in range(n):
+        c2w = nadir_camera(4.0, 40.0, 80)
+        c2w[:3, 3] += (0.05 * k + 0.0123, -0.0217, 0.0)
+        c2ws.append(c2w)
+    cams = CameraSet(c2ws, {0: {"f": 40.0, "image_width": 80, "image_height": 80}},
+                     sensor_IDs=[0] * n)
+    labels = raw_labels(np.int8, N_CLASSES, n)
+    kwargs = dict(mesh=mesh, cameras=cams, n_classes=N_CLASSES,
+                  class_image_provider=lambda i: labels[i], device_mesh=["cpu"],
+                  views_per_step=1, prefetch_workers=4)
+    want = tpipeline.aggregate_class_images_distributed(**kwargs)
+    monkeypatch.setattr(tpipeline, "_SlotRing", Ring)
+    monkeypatch.setattr(tpipeline, "write_label_row", checked)
+    (fracs, views), stats, _ = run_logged(caplog, **kwargs)
+    ring, = rings
+    assert not early
+    assert len(ring.read) == tpipeline.LOOKAHEAD_STEPS + 2
+    assert ring.most_taken == tpipeline.LOOKAHEAD_STEPS
+    assert stats["slot_wait_s"] > 0 and stats["direct_views"] == n
+    assert np.array_equal(fracs, want[0]) and np.array_equal(views, want[1])
 
 
 def test_undersized_caps_gated_then_equal(pinhole, caplog):

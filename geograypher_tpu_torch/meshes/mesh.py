@@ -241,9 +241,7 @@ class TexturedMesh:
         self.vertex_texture: typing.Optional[np.ndarray] = None
         self.face_texture: typing.Optional[np.ndarray] = None
         self._tri_cache: dict = {}
-        self._agg_plan_cache: dict = {}  # AggregationPlan per survey key
-        # the survey pipeline's plans (parallel/pipeline.py), by its key
-        self._pipeline_cfg_cache: dict = {}
+        self._plan_cache: dict = {}  # AggregationPlan per survey key
         self._local_transform = None  # set when georeferenced
         self._mesh_attrs: dict = {}
         self.distortion_engine = DistortionEngine(self.device)
@@ -333,8 +331,7 @@ class TexturedMesh:
         (crop / sort / downsample): the triangle caches, the plans sized
         from them, and the distortion maps kept beside them."""
         self._tri_cache.clear()
-        self._agg_plan_cache.clear()
-        self._pipeline_cfg_cache.clear()
+        self._plan_cache.clear()
         self.distortion_engine.clear()
 
     # -- geometry -------------------------------------------------------------
@@ -1369,7 +1366,8 @@ class TexturedMesh:
         with their bucket's caps (``parallel/planner.py``); a view that
         overflows them adds nothing and is re-censused and re-run, never
         raised after partial work.  The plan is cached on the mesh per
-        (config, scale, distortion, buckets, sample, cameras).
+        (config, lens rule, image size, buckets, sample, cameras), in the
+        cache the survey pipeline shares.
 
         Args:
             labels: optional (M, H, W) integer class stack, numpy or a
@@ -1381,7 +1379,7 @@ class TexturedMesh:
         Returns (counts (n_faces, n_classes) float32 numpy,
         :class:`~geograypher_tpu_torch.parallel.planner.AggregationPlan`).
         """
-        tri_soa, params, labels, h, w, use_dist, key, config = (
+        tri_soa, params, labels, h, w, use_dist, plan, config = (
             self._planned_inputs(
                 cameras, n_classes, class_image_provider, aggregate_img_scale,
                 config, apply_distortion, max_buckets, census_sample, labels,
@@ -1389,12 +1387,25 @@ class TexturedMesh:
         )
         counts, plan = _planner.aggregate_counts_planned(
             tri_soa, params, labels, config, h, w, tri_soa.shape[1], n_classes,
-            use_dist=use_dist, max_buckets=max_buckets, group=group,
-            census_sample=census_sample, plan=self._agg_plan_cache.get(key),
-            label_index=label_index,
+            group=group, plan=plan, label_index=label_index,
         )
-        self._agg_plan_cache[key] = plan
         return counts[: self.n_faces], plan
+
+    def _survey_plan(self, cameras, tri_soa, params, config, h, w, use_dist,
+                     max_buckets=4, census_sample=None):
+        """``(plan, whether it was planned now)``: a survey's
+        :class:`~geograypher_tpu_torch.parallel.planner.AggregationPlan`
+        from the mesh's one plan cache, keyed on everything that decides
+        it, and planned and cached when absent."""
+        key = (config, use_dist, w, h, max_buckets, census_sample,
+               cameras.get_camera_hash())
+        plan = self._plan_cache.get(key)
+        if plan is not None:
+            return plan, False
+        plan = self._plan_cache[key] = _planner.plan_aggregation(
+            tri_soa, params, config, h, w, tri_soa.shape[1], use_dist=use_dist,
+            max_buckets=max_buckets, census_sample=census_sample)
+        return plan, True
 
     def _planned_inputs(
         self, cameras, n_classes, class_image_provider, aggregate_img_scale,
@@ -1402,21 +1413,14 @@ class TexturedMesh:
     ):
         """Shared prep of the planned paths: the triangles (padded to
         ``bin_block`` as the streaming path pads them), packed view
-        parameters, the class-image stack, the plan cache key and the
-        config."""
+        parameters, the class-image stack, the plan (from the mesh's
+        cache) and the config."""
         config = config or self.raster_config
         batch = cameras.get_camera_batch(image_scale=aggregate_img_scale,
                                          device="cpu")
         h, w = batch.image_height, batch.image_width
         n = len(cameras)
-        # one lens model for the whole plan, as the census and the runs
-        # must share it: with any distortion or principal-point offset in
-        # the survey every view rasterizes in its distorted pixel space
-        use_dist = bool(
-            (apply_distortion is None or apply_distortion)
-            and (bool(batch.distortion.any()) or bool(batch.cx.any())
-                 or bool(batch.cy.any()))
-        )
+        use_dist = _planner.survey_use_dist(batch, apply_distortion)
         tri_soa = self._tri_soa_device(cameras, config.bin_block)
         params = _planner.pack_camera_batch(batch, np.ones(n, np.float32))
         if labels is None:
@@ -1427,11 +1431,9 @@ class TexturedMesh:
             for i in range(n):
                 labels[i] = _planner.as_label_dtype(class_image_provider(i),
                                                     n_classes)
-        key = (
-            config, round(aggregate_img_scale, 6), use_dist, max_buckets,
-            census_sample, cameras.get_camera_hash(),
-        )
-        return tri_soa, params, labels, h, w, use_dist, key, config
+        plan, _ = self._survey_plan(cameras, tri_soa, params, config, h, w,
+                                    use_dist, max_buckets, census_sample)
+        return tri_soa, params, labels, h, w, use_dist, plan, config
 
     def aggregate_projected_images_planned(
         self,
@@ -1458,7 +1460,7 @@ class TexturedMesh:
         unseen faces, additional_information dict)`` with the keys of
         :meth:`aggregate_projected_images` and ``"plan"``.
         """
-        tri_soa, params, labels, h, w, use_dist, key, config = (
+        tri_soa, params, labels, h, w, use_dist, plan, config = (
             self._planned_inputs(
                 cameras, n_classes, class_image_provider, aggregate_img_scale,
                 config, apply_distortion, max_buckets, census_sample, labels,
@@ -1466,11 +1468,8 @@ class TexturedMesh:
         )
         value_sum, view_count, plan = _planner.aggregate_projected_planned(
             tri_soa, params, labels, config, h, w, tri_soa.shape[1], n_classes,
-            use_dist=use_dist, max_buckets=max_buckets, group=group,
-            census_sample=census_sample, plan=self._agg_plan_cache.get(key),
-            label_index=label_index,
+            group=group, plan=plan, label_index=label_index,
         )
-        self._agg_plan_cache[key] = plan
         value_sum = value_sum[: self.n_faces]
         view_count = view_count[: self.n_faces]
         with np.errstate(invalid="ignore"):

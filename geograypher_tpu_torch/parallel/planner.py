@@ -20,10 +20,15 @@ What is kept, and why it matters on the card:
   view need not pay for the worst oblique's lists.
 * **Overflow gating and retry.**  A view whose lists overflow its
   bucket's caps adds nothing (``torch.where(overflow == 0, ...)``) and
-  leaves its overflow scalar on the device; :meth:`PlannedAggregator.finalize`
-  fetches them all at once, re-censuses exactly the overflowed views,
-  re-sizes their caps and re-runs them.  A survey never raises after
-  partial work and never drops a count silently.
+  leaves its overflow scalar on the device; the executor's retry fetches
+  them all at once, re-censuses exactly the overflowed views, re-sizes
+  their caps and re-runs them.  A survey never raises after partial work
+  and never drops a count silently.
+* **The one executor.**  ``_DeviceRunner`` runs a plan over a list of
+  devices: prefetch workers write each view's labels into a ring of
+  pinned step slots, a step goes up in one copy, every view runs the fused
+  chain and its gated add, and the retry follows.  The survey pipeline
+  (``parallel/pipeline.py``) and :class:`PlannedAggregator` both run on it.
 
 Not ported, as TPU and compiler workarounds: the compiled group programs
 and their size ladder, the warm corruption check, the program caches,
@@ -34,6 +39,8 @@ on it.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
 import logging
 import time
@@ -49,8 +56,8 @@ from geograypher_tpu_torch.ops.rasterize import (
     setup_from_soa,
 )
 from geograypher_tpu_torch.ops.subtile import subtile_mask8
-from geograypher_tpu_torch.utils.device import PinnedUpload
-from geograypher_tpu_torch.utils.profiling import annotate
+from geograypher_tpu_torch.parallel.sharding import sum_over_devices
+from geograypher_tpu_torch.utils.profiling import _StageTimer, annotate
 
 logger = logging.getLogger(__name__)
 
@@ -326,6 +333,18 @@ def plan_aggregation(
 # Execution
 # ---------------------------------------------------------------------------
 
+MAX_RETRIES = 2  # re-census rounds before an overflow raises
+LOOKAHEAD_STEPS = 3  # steps loading at once: the one waited on and two ahead
+
+
+def survey_use_dist(batch, apply_distortion: typing.Optional[bool]) -> bool:
+    """The lens rule, one lens model for a survey as its census and runs
+    must share it: every view rasterizes in its distorted pixel space when
+    any sensor of ``batch`` has distortion or a principal-point offset,
+    unless ``apply_distortion`` is False."""
+    return bool((apply_distortion is None or apply_distortion) and (
+        batch.distortion.any() or batch.cx.any() or batch.cy.any()))
+
 
 def default_class_image_provider(cameras, image_scale: float):
     """The JAX package's default class-image provider: the host argmax of
@@ -358,6 +377,21 @@ def as_label_dtype(labels: np.ndarray, n_classes: int) -> np.ndarray:
     return labels.astype(dtype, copy=False)
 
 
+def write_label_row(row: np.ndarray, labels: np.ndarray, n_classes: int,
+                    minus_one: np.ndarray) -> None:
+    """``row[...] = as_label_dtype(np.clip(labels, -1, None), n_classes)``:
+    ids below -1 become -1, and a narrowing cast first maps every id
+    outside ``[0, n_classes)`` to -1.  Labels already in the row's dtype
+    take one vectorised pass, ``max(labels, minus_one)`` with ``minus_one``
+    -1s of the row's shape and dtype: numpy runs that loop with the
+    interpreter lock released, where it holds the lock against a broadcast
+    row of -1s and runs a scalar -1 several times slower."""
+    if labels.dtype == row.dtype:
+        np.maximum(labels, minus_one, out=row)
+    else:
+        row[...] = as_label_dtype(np.clip(labels, -1, None), n_classes)
+
+
 def add_view_gated(accs, counts: torch.Tensor, over: torch.Tensor,
                    weighted: bool) -> None:
     """Add one view's (F, C) class counts into the accumulators in place,
@@ -376,6 +410,212 @@ def add_view_gated(accs, counts: torch.Tensor, over: torch.Tensor,
         accs[0].add_(torch.where(ok, counts, 0.0))
 
 
+def _deal(runs, n_dev: int, group: int) -> list:
+    """``[(config, views)]`` -> steps ``[(config, [views of device d])]``:
+    each run's views in steps of ``n_dev * group``, a step's views cut into
+    ``n_dev`` contiguous shards (a short last step shares out evenly)."""
+    steps = []
+    for config, views in runs:
+        for s0 in range(0, len(views), n_dev * group):
+            step = list(views[s0:s0 + n_dev * group])
+            per = -(-len(step) // n_dev)
+            steps.append((config, [step[d * per:(d + 1) * per]
+                                   for d in range(n_dev)]))
+    return steps
+
+
+class _SlotRing:
+    """The step slots of one device, used in turn: ``depth`` buffers of
+    ``group`` label images, page-locked on a card.  The prefetch workers
+    write each view's labels into its row of a slot (:meth:`take`), and
+    :meth:`upload` sends a slot's rows to the device in one copy, issued on
+    one copy stream of the device.  The consumer waits on the device, not
+    on the host: the caller's current stream waits on the copy's event,
+    and the returned tensor is recorded on that stream, so the caching
+    allocator does not hand its memory out before the consumer's work on
+    it has run.  Each slot keeps the event of the copy that last read it,
+    which a worker waits on before it writes there.  On a CPU device a
+    slot's rows are the labels, which the chain consumes before it returns:
+    no copy and no event."""
+
+    def __init__(self, device, depth: int, group: int, h: int, w: int, dtype):
+        self.device = torch.device(device)
+        self.slots = torch.empty((depth, group, h, w),
+                                 dtype=getattr(torch, np.dtype(dtype).name),
+                                 pin_memory=self.device.type == "cuda")
+        self.read: list = [None] * depth  # event of the copy out of each slot
+        self._next = 0
+        self._stream: typing.Optional[torch.cuda.Stream] = None
+
+    def take(self):
+        """The next slot: (its index, its rows as numpy, the event of the
+        copy that last read it or None)."""
+        k = self._next
+        self._next = (k + 1) % len(self.read)
+        return k, self.slots[k].numpy(), self.read[k]
+
+    def upload(self, k: int, n: int) -> torch.Tensor:
+        """The first ``n`` rows of slot ``k`` on the device."""
+        host = self.slots[k, :n]
+        if self.device.type != "cuda":
+            return host
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            # allocated on the copy stream: a block the consumer freed with
+            # work still queued is not reused before that work has run
+            on_device = torch.empty(host.shape, dtype=host.dtype,
+                                    device=self.device)
+            on_device.copy_(host, non_blocking=True)
+        read = torch.cuda.Event()
+        read.record(self._stream)
+        consumer.wait_event(read)
+        on_device.record_stream(consumer)
+        self.read[k] = read
+        return on_device
+
+
+class _DeviceRunner:
+    """The one executor of an aggregation plan over a list of devices: the
+    per-device triangle rows, packed view parameters, rings of step slots
+    and accumulators of one call, the loop that feeds steps of ``group``
+    views a device through them, and the overflow retry.  The survey
+    pipeline runs it on its device list, :class:`PlannedAggregator` on one.
+    ``load(view, row)`` writes a view's labels into its row of a step slot,
+    on a prefetch worker; ``weighted`` selects :func:`add_view_gated`'s
+    accumulation; ``timer`` times the spans ``pipeline.*``.  Every launch
+    comes from the calling thread in one fixed order: two runs give the
+    same bits."""
+
+    def __init__(self, device_mesh, tri_soa, params, n_classes, image_h,
+                 image_w, n_faces, use_dist, load, group, timer, *,
+                 prefetch_workers: int = 4, weighted: bool = True,
+                 max_retries: int = MAX_RETRIES):
+        self.mesh = device_mesh
+        self.soa = {dev: tri_soa.to(dev) for dev in set(device_mesh)}
+        self.host_params = np.asarray(params, np.float32)
+        p = torch.as_tensor(self.host_params)
+        self.params = {dev: p.to(dev) for dev in set(device_mesh)}
+        self.n_classes, self.h, self.w = n_classes, image_h, image_w
+        self.n_faces, self.use_dist, self.weighted = n_faces, use_dist, weighted
+        self.clear()
+        self.rings = [_SlotRing(dev, LOOKAHEAD_STEPS + 2, group, image_h,
+                                image_w, label_dtype(n_classes))
+                      for dev in device_mesh]
+        self.group, self.max_retries = group, max_retries
+        self.load = load
+        self.workers = max(1, int(prefetch_workers))
+        self.direct: set = set()  # views a worker wrote into a slot's row
+        self.timer = timer  # the call's spans and host times
+
+    def clear(self) -> None:
+        """Zeroed accumulators on every device: ``(value_sum,
+        view_count)`` weighted, ``(counts,)`` pooled."""
+        shapes = ((self.n_faces, self.n_classes), (self.n_faces,))
+        self.accs = [tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
+                           for shape in shapes[: 2 if self.weighted else 1])
+                     for dev in self.mesh]
+
+    def _fill(self, view: int, row: np.ndarray, read) -> None:
+        """A worker: wait for the slot's last copy to leave, then load."""
+        if read is not None:
+            with self.timer("pipeline.slot_wait"):
+                read.synchronize()
+        self.load(view, row)
+
+    def _submit(self, pool, shards) -> list:
+        """A step's views to the workers, each with its row of the next slot
+        of its device's ring: ``[(device, views, slot, futures)]``."""
+        out = []
+        for d, views in enumerate(shards):
+            if views:
+                k, rows, read = self.rings[d].take()
+                out.append((d, views, k, [pool.submit(self._fill, v, rows[i], read)
+                                          for i, v in enumerate(views)]))
+        return out
+
+    def run(self, runs) -> list:
+        """Load, upload and launch every view of ``runs`` (``[(config,
+        views)]``, dealt over the devices in steps), the workers loading
+        ``LOOKAHEAD_STEPS`` steps at a time; returns ``[(view, overflow on
+        its device)]``.  No overflow scalar is read."""
+        steps = _deal(runs, len(self.mesh), self.group)
+        overs = []
+        pool = concurrent.futures.ThreadPoolExecutor(self.workers)
+        try:
+            loading = collections.deque()
+            for s, (config, _) in enumerate(steps):
+                while len(loading) < LOOKAHEAD_STEPS and s + len(loading) < len(steps):
+                    loading.append(self._submit(pool, steps[s + len(loading)][1]))
+                for d, views, k, futures in loading.popleft():
+                    with self.timer("pipeline.fetch_wait"):
+                        for future in futures:
+                            future.result()
+                    self.direct.update(views)
+                    with self.timer("pipeline.upload"):
+                        labels = self.rings[d].upload(k, len(views))
+                    for j, view in enumerate(views):
+                        overs.append((view, self._view(d, config, view,
+                                                       labels[j])))
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        return overs
+
+    def _view(self, d, config: RasterConfig, view: int, labels) -> torch.Tensor:
+        with self.timer("pipeline.enqueue"):
+            dev = self.mesh[d]
+            soa, row = self.soa[dev], self.params[dev][view]
+            counts, over, _ = fused_view_class_counts(
+                soa, row[:16].reshape(4, 4), row[16], row[17:25], row[25],
+                row[26], labels, self.w, self.h, config, self.n_faces,
+                self.n_classes, self.use_dist,
+            )
+            add_view_gated(self.accs[d], counts, over, self.weighted)
+        return over
+
+    def retry(self, overs, config: RasterConfig) -> list:
+        """Re-run the views that overflowed (they added nothing) until none
+        does: a round fetches every overflow at once, re-censuses the
+        round's overflowed views into one sub-plan (``config``'s geometry,
+        ``cap_margin`` 2.0 x the round) and re-runs them, re-read through
+        ``load``.  Returns each round's overflowed views; raises
+        ``RuntimeError`` when overflow persists after ``max_retries``
+        rounds."""
+        rounds: list = []
+        while overs:
+            with self.timer("pipeline.sync"):  # every overflow in one fetch
+                flags = torch.stack([o.to(self.mesh[0])
+                                     for _, o in overs]).cpu().numpy()
+            bad = [v for (v, _), flag in zip(overs, flags) if flag]
+            if not bad:
+                break
+            if len(rounds) >= self.max_retries:
+                raise RuntimeError(
+                    f"capacity overflow persisted after {len(rounds)} resize "
+                    f"retries: views {bad} contributed nothing")
+            rounds.append(bad)
+            logger.warning(
+                "capacity overflow: %d views exceeded their caps; re-censusing "
+                "and re-running them (attempt %d)", len(bad), len(rounds))
+            sub_plan = plan_aggregation(
+                self.soa[self.mesh[0]], self.host_params[bad],
+                census_config_of(config), self.h, self.w, self.n_faces,
+                use_dist=self.use_dist, max_buckets=1,
+                cap_margin=2.0 * len(rounds),
+            )
+            overs = self.run([(sub_plan.buckets[0].config, bad)])
+        return rounds
+
+    def download(self, n_rows: int) -> tuple:
+        """The accumulators summed onto the first device in device order,
+        their first ``n_rows`` rows, as numpy."""
+        with self.timer("pipeline.sync"):
+            totals = [sum_over_devices([acc[i] for acc in self.accs])[:n_rows]
+                      for i in range(len(self.accs[0]))]
+            return tuple(t.cpu().numpy() for t in totals)
+
+
 class PlannedAggregator:
     """Executes an :class:`AggregationPlan`: (M, H, W) class images in,
     (n_faces, n_classes) pixel counts out.
@@ -386,6 +626,16 @@ class PlannedAggregator:
     are (value_sum, view_count): the view-weighted semantics of
     ``TexturedMesh.aggregate_projected_images``; ``finalize()`` then
     returns that pair.
+
+    A face over the survey executor (:class:`_DeviceRunner`) on the device
+    of the triangle rows, whose steps are ``group`` views: its ring of
+    ``LOOKAHEAD_STEPS + 2`` step slots holds 5 x ``group`` label images of
+    page-locked host memory on a card (0.83 GB at ``group`` 20 and 4K
+    int8), beside the label stack it copies them from.  A view that
+    overflows is re-run by the executor's retry at ``cap_margin`` 2.0 x the
+    round; ``retry_margin`` is kept for the JAX class's signature and not
+    read (its default gives ``1.25 * retry_margin`` = 2.0, the first
+    round's margin).
 
     Typical use::
 
@@ -411,31 +661,28 @@ class PlannedAggregator:
         self.max_retries = max_retries
         self.retry_margin = retry_margin
         self.weighted = weighted
-        self.resizes = 0  # buckets re-sized by the overflow retry
-        self._accs = None
-        self._overs: list = []  # (bucket position, view, overflow on device)
+        self.resizes = 0  # buckets whose views were re-run, over the rounds
+        self._runner: typing.Optional[_DeviceRunner] = None
+        self._overs: list = []  # (view, overflow on device)
 
     def prepare(self, tri_soa, params: np.ndarray, labels,
                 label_index=None) -> None:
         """Bind the inputs.
 
         ``labels`` is an (M, H, W) integer class stack, numpy or a tensor.
-        It is kept on the host in :func:`label_dtype` and goes up a group of
-        views at a time through one pinned staging buffer, widened to int32
-        on the card.  ``label_index`` maps view id -> row of ``labels``
-        (default: the identity, M == n_views), so views can share rows.
+        It is kept on the host in :func:`label_dtype`; the executor's
+        workers copy each view's row into a pinned step slot, and a step
+        goes up to the card in one copy.  ``label_index`` maps view id ->
+        row of ``labels`` (default: the identity, M == n_views), so views
+        can share rows.
         """
         plan = self.plan
-        self.tri_soa = tri_soa
-        self._params = np.asarray(params, np.float32)
-        self._params_dev = torch.as_tensor(self._params).to(tri_soa.device)
         labels = as_label_dtype(_host(labels), self.n_classes)
         if labels.shape[1:] != (plan.image_h, plan.image_w):
             raise ValueError(
                 f"labels of {tuple(labels.shape[1:])} for images of "
                 f"{(plan.image_h, plan.image_w)}"
             )
-        self._labels = labels
         if label_index is None:
             if labels.shape[0] != plan.n_views:
                 raise ValueError(
@@ -443,49 +690,24 @@ class PlannedAggregator:
                     "without a label_index"
                 )
             label_index = np.arange(plan.n_views)
-        self._lidx = np.asarray(label_index, np.int64)
-        self._upload = PinnedUpload(tri_soa.device)
+        label_index = np.asarray(label_index, np.int64)
 
-    def _init_accs(self):
-        plan = self.plan
-        dev = self.tri_soa.device
-        acc = torch.zeros((plan.n_faces, self.n_classes), dtype=torch.float32,
-                          device=dev)
-        if self.weighted:
-            return (acc, torch.zeros((plan.n_faces,), dtype=torch.float32,
-                                     device=dev))
-        return (acc,)
+        def load(view: int, row: np.ndarray) -> None:
+            row[...] = labels[label_index[view]]
 
-    def _run_views(self, config: RasterConfig, views, pos: int) -> list:
-        """Run ``views`` under ``config`` a group at a time, each view's
-        contribution gated on its own overflow (the accumulators are
-        updated in place); returns [(pos, view, overflow)]."""
-        plan = self.plan
-        overs = []
-        for start in range(0, len(views), self.group):
-            group = views[start:start + self.group]
-            labels = self._upload(self._labels[self._lidx[group]])
-            for k, view in enumerate(group):
-                row = self._params_dev[view]
-                counts, over, _ = fused_view_class_counts(
-                    self.tri_soa, row[:16].reshape(4, 4), row[16], row[17:25],
-                    row[25], row[26], labels[k], plan.image_w, plan.image_h,
-                    config, plan.n_faces, self.n_classes, plan.use_dist,
-                )
-                add_view_gated(self._accs, counts, over, self.weighted)
-                overs.append((pos, view, over))
-        return overs
+        self._runner = _DeviceRunner(
+            [tri_soa.device], tri_soa, params, self.n_classes, plan.image_h,
+            plan.image_w, plan.n_faces, plan.use_dist, load, self.group,
+            _StageTimer(), weighted=self.weighted, max_retries=self.max_retries)
 
     def run(self):
         """Launch every view of every bucket; returns the device
         accumulator (callers time this and one sync).  Each view's
         overflow scalar stays on the device for :meth:`finalize`."""
-        self._accs = self._init_accs()
-        self._overs = []
-        for pos, bucket in enumerate(self.plan.buckets):
-            self._overs += self._run_views(bucket.config,
-                                           list(bucket.view_indices), pos)
-        return self._accs[0]
+        self._runner.clear()
+        self._overs = self._runner.run(
+            [(b.config, b.view_indices) for b in self.plan.buckets])
+        return self._runner.accs[0][0]
 
     def finalize(self):
         """Fetch every overflow at once; re-census, re-size and re-run the
@@ -494,53 +716,37 @@ class PlannedAggregator:
         ``weighted`` the ``(value_sum, view_count)`` numpy pair.  Raises
         when overflow persists after ``max_retries`` rounds."""
         plan = self.plan
-        retries = 0
-        while self._overs:
-            flags = torch.stack([o for _, _, o in self._overs]).cpu().numpy()
-            bad: dict = {}
-            for (pos, view, _), flag in zip(self._overs, flags):
-                if flag:
-                    bad.setdefault(pos, []).append(view)
-            if not bad:
-                break
-            if retries >= self.max_retries:
-                raise RuntimeError(
-                    "aggregation overflow persisted after "
-                    f"{self.max_retries} resize retries (buckets "
-                    f"{[plan.buckets[p].config.caps for p in bad]}, views "
-                    f"{sorted(v for vs in bad.values() for v in vs)})"
-                )
-            retries += 1
-            self.resizes += len(bad)
-            new_overs = []
-            for pos, views in bad.items():
-                bucket = plan.buckets[pos]
-                logger.warning(
-                    "bucket %s: %d views overflowed their caps; re-censusing "
-                    "and re-running them", bucket.config.caps, len(views),
-                )
-                sub_plan = plan_aggregation(
-                    self.tri_soa, self._params[views],
-                    census_config_of(bucket.config), plan.image_h,
-                    plan.image_w, plan.n_faces, use_dist=plan.use_dist,
-                    max_buckets=1, cap_margin=1.25 * self.retry_margin,
-                )
-                new_overs += self._run_views(sub_plan.buckets[0].config,
-                                             views, pos)
-            # only the re-run views can still overflow
-            self._overs = new_overs
-        if self.weighted:
-            return self._accs[0].cpu().numpy(), self._accs[1].cpu().numpy()
-        return self._accs[0].cpu().numpy()
+        rounds = self._runner.retry(self._overs, plan.buckets[0].config)
+        self._overs = []
+        self.resizes += sum(not set(bad).isdisjoint(b.view_indices)
+                            for bad in rounds for b in plan.buckets)
+        out = self._runner.download(plan.n_faces)
+        return out if self.weighted else out[0]
 
     def close(self) -> None:
-        """Drop this aggregator's buffers (labels, parameters,
-        accumulators, the pinned staging buffer)."""
-        self._labels = self._params = self._params_dev = None
-        self._accs = None
+        """Drop this aggregator's executor: its labels, parameters,
+        accumulators and pinned ring."""
+        self._runner = None
         self._overs = []
-        self._upload = None
-        self.tri_soa = None  # shared with the caller: drop the reference only
+
+
+def _aggregate_planned(weighted, tri_soa, params, labels, config, image_h,
+                       image_w, n_faces, n_classes, use_dist, max_buckets,
+                       group, census_sample, plan, label_index):
+    """The body of the one-call planned aggregations: (finalize's result,
+    plan)."""
+    if plan is None:
+        plan = plan_aggregation(
+            tri_soa, params, config, image_h, image_w, n_faces,
+            use_dist=use_dist, max_buckets=max_buckets,
+            census_sample=census_sample,
+        )
+    agg = PlannedAggregator(plan, n_classes, group=group, weighted=weighted)
+    agg.prepare(tri_soa, params, labels, label_index=label_index)
+    agg.run()
+    out = agg.finalize()
+    agg.close()
+    return out, plan
 
 
 def aggregate_counts_planned(
@@ -563,18 +769,10 @@ def aggregate_counts_planned(
     """One-call planned aggregation: census -> buckets -> gated runs ->
     (n_faces, n_classes) pixel counts after the overflow retry.  Pass
     ``plan`` to reuse a plan of the same cameras and shapes."""
-    if plan is None:
-        plan = plan_aggregation(
-            tri_soa, params, config, image_h, image_w, n_faces,
-            use_dist=use_dist, max_buckets=max_buckets,
-            census_sample=census_sample,
-        )
-    agg = PlannedAggregator(plan, n_classes, group=group)
-    agg.prepare(tri_soa, params, labels, label_index=label_index)
-    agg.run()
-    counts = agg.finalize()
-    agg.close()
-    return counts, plan
+    return _aggregate_planned(
+        False, tri_soa, params, labels, config, image_h, image_w, n_faces,
+        n_classes, use_dist, max_buckets, group, census_sample, plan,
+        label_index)
 
 
 def aggregate_projected_planned(
@@ -598,15 +796,8 @@ def aggregate_projected_planned(
     class distribution counts / total, summed over the views that saw the
     face.  Returns ``(value_sum (F, C), view_count (F,), plan)``; the
     average is ``value_sum / view_count``, NaN where unseen."""
-    if plan is None:
-        plan = plan_aggregation(
-            tri_soa, params, config, image_h, image_w, n_faces,
-            use_dist=use_dist, max_buckets=max_buckets,
-            census_sample=census_sample,
-        )
-    agg = PlannedAggregator(plan, n_classes, group=group, weighted=True)
-    agg.prepare(tri_soa, params, labels, label_index=label_index)
-    agg.run()
-    value_sum, view_count = agg.finalize()
-    agg.close()
+    (value_sum, view_count), plan = _aggregate_planned(
+        True, tri_soa, params, labels, config, image_h, image_w, n_faces,
+        n_classes, use_dist, max_buckets, group, census_sample, plan,
+        label_index)
     return value_sum, view_count, plan

@@ -22,8 +22,10 @@ the only switch.  No span waits for the device or reads a device value.
 
 The spans the port opens on its hot paths:
 
-* ``parallel/pipeline.py`` ``aggregate_class_images_distributed``, one
-  timer a call, each span the ``pipeline_stats`` key in brackets:
+* ``parallel/pipeline.py`` ``aggregate_class_images_distributed`` and the
+  plan's executor it runs (``parallel/planner.py`` ``_DeviceRunner``,
+  which opens the same spans for ``PlannedAggregator``), one timer a call,
+  each span the ``pipeline_stats`` key in brackets:
   ``pipeline.prepare`` (``prepare_s``), ``pipeline.load`` and
   ``pipeline.slot_wait`` on the prefetch workers' threads (``load_s``,
   ``slot_wait_s``; on a trace only where the profiler records every

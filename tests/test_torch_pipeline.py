@@ -204,13 +204,13 @@ def test_plan_cached_on_the_mesh_and_dropped_on_edit(pinhole):
                         raster_config=tmesh.raster_config, device="cpu")
     tpipeline.aggregate_class_images_distributed(mesh, tseg, N_CLASSES,
                                                  device_mesh=["cpu"])
-    (key, plan), = mesh._pipeline_cfg_cache.items()
-    assert key[0] == "plan" and plan.n_views == len(tseg)
+    (key, plan), = mesh._plan_cache.items()
+    assert key[-1] == tseg.get_camera_hash() and plan.n_views == len(tseg)
     tpipeline.aggregate_class_images_distributed(mesh, tseg, N_CLASSES,
                                                  device_mesh=["cpu"])
-    assert mesh._pipeline_cfg_cache[key] is plan
+    assert mesh._plan_cache[key] is plan
     mesh.spatial_sort_faces()
-    assert not mesh._pipeline_cfg_cache
+    assert not mesh._plan_cache
 
 
 def run_logged(caplog, **kwargs):
@@ -280,8 +280,8 @@ def as_uploaded_before(monkeypatch):
         up = uploads.setdefault(id(ring), PinnedUpload(ring.device))
         return up(np.stack(list(ring.slots[k, :n].numpy())))
 
-    monkeypatch.setattr(tpipeline, "write_label_row", rule)
-    monkeypatch.setattr(tpipeline._SlotRing, "upload", upload)
+    monkeypatch.setattr(tplanner, "write_label_row", rule)
+    monkeypatch.setattr(tplanner._SlotRing, "upload", upload)
 
 
 @pytest.mark.parametrize("dtype,n_classes,n_dev,views_per_step,caps", [
@@ -317,7 +317,7 @@ def test_rows_written_by_the_workers_equal_the_old_upload(
     row = np.empty((80, 80), tplanner.label_dtype(n_classes))
     minus_one = np.full_like(row, -1)
     for image in labels:  # the rows themselves, where negative ids count alike
-        tpipeline.write_label_row(row, image, n_classes, minus_one)
+        tplanner.write_label_row(row, image, n_classes, minus_one)
         assert np.array_equal(
             row, tplanner.as_label_dtype(np.clip(image, -1, None), n_classes))
 
@@ -337,7 +337,7 @@ def test_workers_wait_for_a_slots_last_copy(monkeypatch, caplog):
             time.sleep(0.002)
             self.done = True
 
-    class Ring(tpipeline._SlotRing):
+    class Ring(tplanner._SlotRing):
         def __init__(self, *args):
             super().__init__(*args)
             self.taken = self.most_taken = 0
@@ -353,7 +353,7 @@ def test_workers_wait_for_a_slots_last_copy(monkeypatch, caplog):
             self.read[k] = StubEvent()
             return super().upload(k, n)
 
-    write = tpipeline.write_label_row
+    write = tplanner.write_label_row
 
     def checked(row, labels, n_classes, minus_one):
         for ring in rings:
@@ -379,13 +379,13 @@ def test_workers_wait_for_a_slots_last_copy(monkeypatch, caplog):
                   class_image_provider=lambda i: labels[i], device_mesh=["cpu"],
                   views_per_step=1, prefetch_workers=4)
     want = tpipeline.aggregate_class_images_distributed(**kwargs)
-    monkeypatch.setattr(tpipeline, "_SlotRing", Ring)
-    monkeypatch.setattr(tpipeline, "write_label_row", checked)
+    monkeypatch.setattr(tplanner, "_SlotRing", Ring)
+    monkeypatch.setattr(tplanner, "write_label_row", checked)
     (fracs, views), stats, _ = run_logged(caplog, **kwargs)
     ring, = rings
     assert not early
-    assert len(ring.read) == tpipeline.LOOKAHEAD_STEPS + 2
-    assert ring.most_taken == tpipeline.LOOKAHEAD_STEPS
+    assert len(ring.read) == tplanner.LOOKAHEAD_STEPS + 2
+    assert ring.most_taken == tplanner.LOOKAHEAD_STEPS
     assert stats["slot_wait_s"] > 0 and stats["direct_views"] == n
     assert np.array_equal(fracs, want[0]) and np.array_equal(views, want[1])
 
@@ -460,7 +460,7 @@ def test_benign_first_hostile_later(caplog):
 
 def test_overflow_that_persists_raises(pinhole, monkeypatch):
     tmesh, tseg, *_ = pinhole
-    monkeypatch.setattr(tpipeline, "MAX_RETRIES", 0)
+    monkeypatch.setattr(tplanner, "MAX_RETRIES", 0)
     with pytest.raises(RuntimeError, match="overflow persisted"):
         tpipeline.aggregate_class_images_distributed(
             tmesh, tseg, N_CLASSES, device_mesh=["cpu"], auto_size_fold=False,

@@ -22,6 +22,7 @@ from geograypher_tpu.predictors.segmentors import ArraySegmentor
 from geograypher_tpu_torch import interop
 from geograypher_tpu_torch.ops.face_counts import face_class_counts_plain
 from geograypher_tpu_torch.ops.rasterize import rasterize_setup, setup_from_soa
+from geograypher_tpu_torch.parallel import pipeline as tpipeline
 from geograypher_tpu_torch.parallel import planner as tplanner
 from geograypher_tpu_torch.utils.fixtures import (
     make_grid_mesh,
@@ -303,6 +304,46 @@ def test_mesh_planned_route(survey, jax_mesh_planned):
     np.testing.assert_array_equal(counts, per_view.numpy())
     swapped = face_swaps(counts, jax_mesh_planned)
     np.testing.assert_array_equal(counts[~swapped], jax_mesh_planned[~swapped])
+
+
+@pytest.mark.parametrize("retry", [False, True], ids=["planned", "retried"])
+def test_planned_aggregator_equals_the_pipeline(survey, retry):
+    """One plan and one label stack on one CPU device: the pipeline fed the
+    rows through a provider finds the planned path's plan in the mesh's
+    one cache, and ``PlannedAggregator`` weighted gives its bits, view
+    counts and sums, also through a forced retry (caps every view
+    overflows, one sub-plan a round); pooled, the retry changes no count
+    and the faces seen are the pipeline's."""
+    jmesh, jcams, labels = survey
+    mesh = interop.mesh_from_jax(jmesh, device="cpu")
+    cams = interop.cameras_from_jax(jcams)
+    tri, params, rows, _, _, _, plan, config = mesh._planned_inputs(
+        cams, N_CLASSES, None, 1.0, None, None, 4, None, labels)
+    kwargs = dict(class_image_provider=lambda i: labels[i],
+                  device_mesh=["cpu"], views_per_step=3)
+    fitted = plan
+    if retry:
+        plan = forced_plan(plan, caps=(4, 4, 4, 4))
+        kwargs.update(auto_size_fold=False, config=plan.buckets[0].config)
+    fracs, views = tpipeline.aggregate_class_images_distributed(
+        mesh, cams, N_CLASSES, **kwargs)
+    assert list(mesh._plan_cache.values()) == [fitted]
+    out, resizes = {}, {}
+    for name, p, weighted in (("weighted", plan, True), ("pooled", plan, False),
+                              ("fitted", fitted, False)):
+        agg = tplanner.PlannedAggregator(p, N_CLASSES, group=3, weighted=weighted)
+        agg.prepare(tri, params, rows)
+        assert agg.run().shape == (p.n_faces, N_CLASSES)
+        out[name], resizes[name] = agg.finalize(), agg.resizes
+        agg.close()
+    assert resizes == dict(weighted=int(retry), pooled=int(retry), fitted=0)
+    value_sum, view_count = (a[: mesh.n_faces] for a in out["weighted"])
+    assert view_count.max() >= 2
+    np.testing.assert_array_equal(view_count, views)
+    np.testing.assert_array_equal(value_sum, fracs)
+    pooled = out["pooled"]
+    np.testing.assert_array_equal(pooled, out["fitted"])
+    np.testing.assert_array_equal(pooled[: mesh.n_faces].sum(axis=1) > 0, views > 0)
 
 
 def test_mesh_planned_refuses_and_auto_streams(survey, monkeypatch):
